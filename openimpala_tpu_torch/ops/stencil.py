@@ -1,0 +1,385 @@
+"""Masked 7-point stencil systems, matrix-free (the counterpart of
+``openimpala_tpu/ops/stencil.py``).
+
+**Flow-through (tortuosity) operator** — reference
+``src/props/TortuosityHypreFill.F90:44-262``: inactive cells are identity
+rows; active cells carry ``a_c = sum_f w_f m_f`` and ``-w_f`` to each active
+neighbour (``w_f = 1/dx_f^2``); active cells on the inlet/outlet plane are
+Dirichlet rows with rhs vlo/vhi.
+
+**Periodic cell problem operator** — reference
+``src/props/EffDiffFillMtx.F90:42-264``: the diagonal sums all 6 faces,
+off-diagonals go to active neighbours, every axis wraps.
+
+Both are solved in eliminated (free-set) form, where the operator is SPD.
+
+Packed geometry: one bf16 value per cell carries the operator.  Isotropic
+spacing packs ``free ? n_active_neighbours : -1``; anisotropic spacing packs
+the per-axis counts ``free ? cx*16 + cy*4 + cz : -1``.  ``decode_code``
+recovers (diag, free) exactly; the CUDA kernel K1 decodes in-register.
+
+Dispatch rule: ``apply_code``, ``apply_code_with_dot``, ``smooth_sweep``,
+``residual_restricted`` and ``residual_restrict`` launch the CUDA kernel K1
+(``ops/stencil_cuda.py``) for a CUDA tensor, and run the plain PyTorch form
+beside them only for a CPU tensor.  Any other device raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..parallel.halo import pad_halo
+from . import stencil_cuda
+
+Axis = int  # 0=X, 1=Y, 2=Z (matches reference Direction enum)
+
+
+def neighbor_sum(x, w, periodic):
+    """sum_f w_f * x(neighbour_f) for the 6 face neighbours (zero outside
+    clamped axes, wrapped on periodic axes)."""
+    xp = pad_halo(x, periodic)
+    return (
+        w[0] * (xp[:-2, 1:-1, 1:-1] + xp[2:, 1:-1, 1:-1])
+        + w[1] * (xp[1:-1, :-2, 1:-1] + xp[1:-1, 2:, 1:-1])
+        + w[2] * (xp[1:-1, 1:-1, :-2] + xp[1:-1, 1:-1, 2:])
+    )
+
+
+def weighted_degree(active, w, periodic, dtype):
+    """Diagonal of the tortuosity operator: sum_f w_f * active(neighbour_f)
+    (``TortuosityHypreFill.F90:126-166``)."""
+    return neighbor_sum(active.to(dtype), w, periodic)
+
+
+def neighbor_count_axes(active, periodic):
+    """Per-axis active-neighbour counts ((cx, cy, cz), each 0..2, int8)."""
+    ap = pad_halo(active.to(torch.int8), periodic)
+    sl = [slice(1, -1)] * 3
+    counts = []
+    for ax in range(3):
+        lo, hi = list(sl), list(sl)
+        lo[ax] = slice(0, -2)
+        hi[ax] = slice(2, None)
+        counts.append(ap[tuple(lo)] + ap[tuple(hi)])
+    return tuple(counts)
+
+
+def neighbor_count(active, periodic):
+    """Total active-neighbour count (0..6) per cell, int8."""
+    cx, cy, cz = neighbor_count_axes(active, periodic)
+    return cx + cy + cz
+
+
+def _minus_one_bf16(device):
+    return torch.full((), -1.0, dtype=torch.bfloat16, device=device)
+
+
+def pack_code(nsum, free):
+    """Isotropic signed-count packing: free ? nsum : -1."""
+    return torch.where(free, nsum.to(torch.bfloat16),
+                       _minus_one_bf16(nsum.device))
+
+
+def pack_code_axes(counts, free):
+    """Anisotropic per-axis packing: free ? cx*16 + cy*4 + cz : -1."""
+    cx, cy, cz = (c.to(torch.int32) for c in counts)
+    return torch.where(free, (cx * 16 + cy * 4 + cz).to(torch.bfloat16),
+                       _minus_one_bf16(cx.device))
+
+
+def pack_code_for(w, active, free, periodic):
+    """The packed geometry for weights ``w`` (mirrors ``decode_code``)."""
+    if uniform_w(w):
+        return pack_code(neighbor_count(active, periodic), free)
+    return pack_code_axes(neighbor_count_axes(active, periodic), free)
+
+
+def unpack_code_axes(code, dtype):
+    """(cx, cy, cz) per-axis counts from the anisotropic packing, in
+    ``dtype``.  Exact: 1/16 and 1/4 are powers of two and the packed values
+    are small integers."""
+    c = code.clamp(min=0).to(dtype)
+    cx = torch.floor(c * 0.0625)
+    rem = c - cx * 16
+    cy = torch.floor(rem * 0.25)
+    cz = rem - cy * 4
+    return cx, cy, cz
+
+
+def decode_code(code, w, dtype):
+    """(diag, free) from the packed geometry, dispatching on the weight
+    tuple: isotropic count decode or per-axis unpack."""
+    free = code > 0
+    if uniform_w(w):
+        return code.clamp(min=0).to(dtype) * w[0], free
+    cx, cy, cz = unpack_code_axes(code, dtype)
+    # same expression and evaluation order as weighted_degree
+    return w[0] * cx + w[1] * cy + w[2] * cz, free
+
+
+def uniform_w(w) -> bool:
+    return w[0] == w[1] == w[2]
+
+
+def _zero(x):
+    """0-d zero of ``x``'s dtype and device."""
+    return torch.zeros((), dtype=x.dtype, device=x.device)
+
+
+def _full(v, dtype, device):
+    """0-d tensor (a fill kernel on the card, never a host-to-device
+    copy)."""
+    return torch.full((), v, dtype=dtype, device=device)
+
+
+def _on_cpu(x) -> bool:
+    """The dispatch rule: CPU tensors take the plain form, everything else
+    goes to the kernel wrapper (which raises unless it is CUDA)."""
+    return x.device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch forms of kernel K1.  The dispatchers below call them only for
+# CPU tensors; on the card they serve as the reference the kernel is held
+# against, and every call with a CUDA tensor is counted
+# (``stencil_cuda.plain_on_cuda``) so a run can show the solve never took
+# them there.
+# ---------------------------------------------------------------------------
+
+
+def apply_restricted(x, diag, free, w, periodic):
+    """Action of the free-set operator with explicit (diag, free):
+    ``free ? diag*x - sum_f w_f x_nbr : 0`` (plain form)."""
+    stencil_cuda.note_plain("k1_matvec", x)
+    return torch.where(free, diag * x - neighbor_sum(x, w, periodic), _zero(x))
+
+
+def apply_code_plain(x, code, w, periodic):
+    diag, free = decode_code(code, w, x.dtype)
+    return apply_restricted(x, diag, free, w, periodic)
+
+
+def apply_code_with_dot_plain(x, code, w, periodic):
+    ax = apply_code_plain(x, code, w, periodic)
+    return ax, torch.sum(x * ax)
+
+
+def smooth_sweep_plain(x, r, code, w, periodic, omega: float):
+    stencil_cuda.note_plain("k1_sweep", x)
+    diag, free = decode_code(code, w, x.dtype)
+    inv_d = torch.where(
+        free & (diag > 0),
+        _full(omega, x.dtype, x.device) / torch.where(diag > 0, diag, 1.0),
+        _zero(x),
+    )
+    return x + inv_d * (r - apply_restricted(x, diag, free, w, periodic))
+
+
+def residual_restricted_plain(x, r, code, w, periodic):
+    stencil_cuda.note_plain("k1_resid", x)
+    diag, free = decode_code(code, w, x.dtype)
+    return torch.where(free, r - apply_restricted(x, diag, free, w, periodic),
+                       _zero(x))
+
+
+def residual_restrict_plain(x, r, code, w, periodic):
+    stencil_cuda.note_plain("k1_restrict", x)
+    diag, free = decode_code(code, w, x.dtype)
+    resid = torch.where(free,
+                        r - apply_restricted(x, diag, free, w, periodic),
+                        _zero(x))
+    for axis in (2, 1, 0):
+        shape = list(resid.shape)
+        shape[axis:axis + 1] = [shape[axis] // 2, 2]
+        resid = resid.reshape(shape).sum(dim=axis + 1)
+    return resid
+
+
+# ---------------------------------------------------------------------------
+# Dispatchers (kernel K1 on the card, plain form on the CPU)
+# ---------------------------------------------------------------------------
+
+
+def apply_code(x, code, w, periodic):
+    """Action of the free-set operator from the packed geometry."""
+    if _on_cpu(x):
+        return apply_code_plain(x, code, w, periodic)
+    return stencil_cuda.k1_stencil("matvec", x, None, code, w, periodic)
+
+
+def apply_code_with_dot(x, code, w, periodic):
+    """``(A x, <x, A x>)``; on the card the reduction is fused into the
+    stencil pass (a deterministic two-stage sum, no float atomics)."""
+    if _on_cpu(x):
+        return apply_code_with_dot_plain(x, code, w, periodic)
+    return stencil_cuda.k1_stencil("matvec", x, None, code, w, periodic,
+                                   with_dot=True)
+
+
+def smooth_sweep(x, r, code, w, periodic, omega: float):
+    """One damped-Jacobi sweep ``x + (omega/diag)*(r - A x)`` (free &
+    diag>0; else x)."""
+    if _on_cpu(x):
+        return smooth_sweep_plain(x, r, code, w, periodic, omega)
+    return stencil_cuda.k1_stencil("sweep", x, r, code, w, periodic,
+                                   omega=omega)
+
+
+def residual_restricted(x, r, code, w, periodic):
+    """``free ? r - A x : 0`` in one pass."""
+    if _on_cpu(x):
+        return residual_restricted_plain(x, r, code, w, periodic)
+    return stencil_cuda.k1_stencil("resid", x, r, code, w, periodic)
+
+
+def residual_restrict(x, r, code, w, periodic):
+    """``blocksum_2x2x2(free ? r - A x : 0)`` in one pass: the (X/2, Y/2,
+    Z/2) coarse residual, the fine residual never written out.  Every
+    extent must be even."""
+    if _on_cpu(x):
+        return residual_restrict_plain(x, r, code, w, periodic)
+    return stencil_cuda.k1_stencil("restrict", x, r, code, w, periodic)
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilSystem:
+    """A masked-Laplacian linear system in eliminated (free-set) form.
+
+    The full system ``A_full x_full = b_full`` has identity rows on forced
+    cells (inactive, Dirichlet).  We solve ``A z = r0`` on ``free`` with
+    ``x_full = x_forced + z`` and ``r0 = free * (b_full - A_full x_forced)``;
+    Hypre's criterion ``||b - A x||_2 / ||b_full||_2 <= eps``
+    (``TortuosityHypre.cpp:686-688``) is reproduced with ``b_norm``.
+    """
+
+    code: torch.Tensor  # bf16 packed geometry (free ? count : -1)
+    x_forced: torch.Tensor  # forced values; 0 on free cells (may be 0-d)
+    r0_b: torch.Tensor  # b_full restricted to free rows (may be 0-d)
+    b_norm: torch.Tensor  # ||b_full||_2, 0-d
+    w: tuple
+    periodic: tuple
+
+    @property
+    def free(self):
+        return self.code > 0
+
+    @property
+    def diag(self):
+        """Diagonal in the storage dtype, meaningful only under ``free``."""
+        return decode_code(self.code, self.w, self.r0_b.dtype)[0]
+
+    def apply(self, x):
+        return apply_code(x, self.code, self.w, self.periodic)
+
+    def apply_with_dot(self, x):
+        return apply_code_with_dot(x, self.code, self.w, self.periodic)
+
+    def initial_residual(self, x0_free):
+        """r0 for the Krylov solve starting at z = x0_free (the operator
+        reads neighbours from the full array, forced values included)."""
+        x_start = self.x_forced + x0_free
+        return torch.where(self.free, self.r0_b - self.apply(x_start),
+                           _zero(x0_free))
+
+    def assemble_solution(self, z):
+        return self.x_forced + torch.where(self.free, z, _zero(z))
+
+    def astype(self, dtype) -> "StencilSystem":
+        """Cast the float fields; the packed bf16 geometry is dtype-free."""
+        return dataclasses.replace(
+            self,
+            x_forced=self.x_forced.to(dtype),
+            r0_b=self.r0_b.to(dtype),
+            b_norm=self.b_norm.to(dtype),
+        )
+
+
+def _weights(dx):
+    return tuple(1.0 / (float(d) * float(d)) for d in dx)
+
+
+def make_tortuosity_system(active, direction: Axis, vlo: float, vhi: float,
+                           dx=(1.0, 1.0, 1.0), dtype=torch.float64,
+                           hi_plane: int | None = None) -> StencilSystem:
+    """Build the flow-through system for a percolation mask ``active`` (a
+    bool tensor; the system lives on its device).
+
+    Dirichlet vlo/vhi on the inlet/outlet planes of ``direction``, no-flux
+    elsewhere, non-periodic.  ``hi_plane`` overrides the outlet plane index.
+    """
+    periodic = (False, False, False)
+    w = _weights(dx)
+    active = active.to(torch.bool)
+    dev = active.device
+    shape = tuple(active.shape)
+    n = shape[direction]
+    hi = n - 1 if hi_plane is None else int(hi_plane)
+
+    axes = neighbor_count_axes(active, periodic)
+    nsum = axes[0] + axes[1] + axes[2]
+    # an active cell with NO active neighbours is decoupled BEFORE the
+    # Dirichlet overwrite (TortuosityHypreFill.F90:172-181 `cycle`s): an
+    # isolated inlet-plane cell becomes an identity row, not a vlo row
+    connected = active & (nsum > 0)
+
+    idx = torch.arange(n, device=dev).reshape(
+        [-1 if a == direction else 1 for a in range(3)])
+    on_lo = (idx == 0) & connected
+    on_hi = (idx == hi) & connected
+    dirichlet = on_lo | on_hi
+    free = connected & ~dirichlet
+    code = (pack_code(nsum, free) if uniform_w(w)
+            else pack_code_axes(axes, free))
+
+    x_forced = torch.where(on_lo, _full(vlo, dtype, dev),
+                           torch.zeros(shape, dtype=dtype, device=dev))
+    x_forced = torch.where(on_hi, _full(vhi, dtype, dev), x_forced)
+
+    # rhs of free rows is identically 0: a 0-d scalar, not a volume
+    r0_b = torch.zeros((), dtype=dtype, device=dev)
+    n_lo = torch.sum(on_lo, dtype=dtype)
+    n_hi = torch.sum(on_hi, dtype=dtype)
+    b_norm = torch.sqrt(vlo * vlo * n_lo + vhi * vhi * n_hi)
+    return StencilSystem(code=code, x_forced=x_forced, r0_b=r0_b,
+                         b_norm=b_norm, w=w, periodic=periodic)
+
+
+def make_cell_problem_system(active, direction_k: Axis, dx=(1.0, 1.0, 1.0),
+                             dtype=torch.float64) -> StencilSystem:
+    """Build the periodic homogenisation cell problem for chi_k
+    (``EffectiveDiffusivityHypre.cpp:213-399``)."""
+    periodic = (True, True, True)
+    w = _weights(dx)
+    active = active.to(torch.bool)
+    dev = active.device
+
+    # every face contributes w_f to the diagonal (EffDiffFillMtx.F90:156-221):
+    # packed count 6 everywhere (anisotropic: per-axis 2 each = 42)
+    code_free = 6 if uniform_w(w) else 2 * 16 + 2 * 4 + 2
+    code = torch.where(active,
+                       torch.full((), code_free, dtype=torch.bfloat16,
+                                  device=dev),
+                       _minus_one_bf16(dev))
+
+    m = active.to(dtype)
+    mp = pad_halo(m, periodic)
+    sl = [slice(1, -1)] * 3
+    lo_sl, hi_sl = list(sl), list(sl)
+    lo_sl[direction_k] = slice(0, -2)
+    hi_sl[direction_k] = slice(2, None)
+    m_minus = mp[tuple(lo_sl)]
+    m_plus = mp[tuple(hi_sl)]
+
+    inv_2d = 1.0 / (2.0 * float(dx[direction_k]))
+    inv_d = 1.0 / float(dx[direction_k])
+    # rhs = -(D+ - D-)/(2 dx) + (1 - m_-)/dx - (1 - m_+)/dx
+    rhs = (-(m_plus - m_minus) * inv_2d + (1.0 - m_minus) * inv_d
+           - (1.0 - m_plus) * inv_d)
+    rhs = torch.where(active, rhs, torch.zeros((), dtype=dtype, device=dev))
+
+    b_norm = torch.sqrt(torch.sum(rhs * rhs))
+    return StencilSystem(code=code,
+                         x_forced=torch.zeros((), dtype=dtype, device=dev),
+                         r0_b=rhs, b_norm=b_norm, w=w, periodic=periodic)

@@ -1,0 +1,193 @@
+"""Flow-through tortuosity driver (counterpart of
+``openimpala_tpu/props/tortuosity.py``; reference
+``OpenImpala::TortuosityHypre``, ``src/props/TortuosityHypre.{H,cpp}``):
+
+1. optional remspot filter (``TortuosityHypre.cpp:248-292``);
+2. percolation mask from inlet/outlet faces on the host (``:394-558``);
+   active VF = n_active / n_total;
+3. free-set system with the packed bf16 geometry, float32 PCG with the
+   Galerkin multigrid V-cycle inside float64 iterative refinement (the
+   stencil kernels K1 and K2 on the card);
+4. boundary fluxes, the conservation gate rel_diff <= 1e-6 (``:794-823``),
+   and tau = active_vf / Deff with the reference's NaN/Inf policy
+   (``:831-877``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..ops.filters import remspot
+from ..ops.floodfill import percolation_mask
+from ..ops.flux import boundary_fluxes
+from ..ops.masks import linear_ramp
+from ..ops.stencil import make_tortuosity_system
+from ..solve.cg import ResidualHistory
+from ..solve.refine import solve_system
+from ..utils.common import parse_direction, resolve_device
+from ..utils.profiling import phase_timer
+
+TINY_FLUX = 1e-15  # reference tiny_flux_threshold, TortuosityHypre.cpp:64
+FLUX_TOL = 1e-6  # reference flux conservation gate, TortuosityHypre.cpp:794
+
+
+def _build_system(active, direction, vlo, vhi, dx, storage):
+    """System + initial guess (the linear ramp on free cells)."""
+    sys_ = make_tortuosity_system(active, direction, vlo, vhi, dx,
+                                  dtype=storage)
+    ramp = linear_ramp(tuple(active.shape), direction, vlo, vhi,
+                       dtype=storage, device=active.device)
+    x0 = torch.where(sys_.free, ramp,
+                     torch.zeros((), dtype=storage, device=active.device))
+    return sys_, x0
+
+
+@dataclasses.dataclass
+class TortuosityResult:
+    value: float  # tau (NaN / Inf per reference edge cases)
+    deff: float
+    active_vf: float
+    flux_in: float
+    flux_out: float
+    flux_rel_diff: float
+    flux_conserved: bool
+    iterations: int
+    rel_res: float
+    converged: bool
+    direction: int
+    phi: object = None  # potential field (if return_fields)
+    active: object = None  # percolation mask (if return_fields)
+    history: object = None  # ResidualHistory (if return_history)
+
+
+def tortuosity(
+    phase,
+    phase_id: int,
+    direction,
+    vlo: float = -1.0,
+    vhi: float = 1.0,
+    eps: float = 1e-9,
+    maxiter: int = 20000,
+    method: str = "cg",
+    precond: str = "auto",
+    precond_opts: dict = None,
+    dx=(1.0, 1.0, 1.0),
+    remspot_passes: int = 0,
+    percolation_method: str = "auto",
+    inner_dtype=torch.float32,
+    dtype=torch.float64,
+    return_fields: bool = False,
+    return_history: bool = False,
+    verbose: int = 0,
+    device=None,
+    timings: dict | None = None,
+) -> TortuosityResult:
+    """Flow-through tortuosity of ``phase_id`` along ``direction`` of the
+    (X, Y, Z) volume ``phase`` (numpy array or tensor).
+
+    ``device``: None means CUDA, and raises where there is none; pass
+    ``"cpu"`` to run on the CPU.  ``timings``: optional dict that receives
+    the wall seconds of each step (the device is synchronised at each
+    step's end, so the times include the queued device work).
+    """
+    dev = resolve_device(device)
+    direction = parse_direction(direction)
+    if isinstance(phase, torch.Tensor):
+        phase = phase.cpu().numpy()
+    phase = np.asarray(phase)
+    shape = tuple(phase.shape)
+
+    if remspot_passes > 0:
+        with phase_timer(timings, "remspot"):
+            phase = remspot(torch.from_numpy(np.ascontiguousarray(phase)),
+                            remspot_passes).numpy()
+
+    with phase_timer(timings, "percolation_mask"):
+        active, active_vf = percolation_mask(phase, phase_id, direction,
+                                             method=percolation_method)
+
+    nanres = TortuosityResult(
+        value=math.nan, deff=math.nan, active_vf=active_vf,
+        flux_in=0.0, flux_out=0.0, flux_rel_diff=math.nan,
+        flux_conserved=False, iterations=0, rel_res=math.nan,
+        converged=False, direction=direction,
+    )
+    if active_vf <= np.finfo(np.float64).eps:
+        # zero percolation: NaN, matching TortuosityHypre.cpp:170-178,764-777
+        return nanres
+
+    storage = dtype if inner_dtype is None else inner_dtype
+    with phase_timer(timings, "mask_upload", dev):
+        active_t = torch.from_numpy(active).to(dev)
+    with phase_timer(timings, "system_setup", dev):
+        system, x0_free = _build_system(active_t, direction, float(vlo),
+                                        float(vhi), tuple(dx), storage)
+
+    hist = ResidualHistory() if return_history else None
+    with phase_timer(timings, "solve", dev):
+        x_full, info = solve_system(
+            system, x0_free, eps=eps, maxiter=maxiter, method=method,
+            precond=precond, inner_dtype=inner_dtype, outer_dtype=dtype,
+            precond_opts=precond_opts, verbose=verbose, history=hist,
+            timings=timings,
+        )
+    del system, x0_free
+    iterations = int(info.iterations)
+    rel_res = float(info.rel_res)
+    converged = bool(info.converged)
+    if verbose > 0:
+        print(f"  Solver iterations: {iterations}  rel_res: {rel_res:.3e}  "
+              f"converged: {converged}")
+    if not converged:
+        return dataclasses.replace(
+            nanres, iterations=iterations, rel_res=rel_res,
+            phi=x_full if return_fields else None,
+            active=active if return_fields else None,
+            history=hist,
+        )
+
+    with phase_timer(timings, "flux", dev):
+        flux_in, flux_out = boundary_fluxes(x_full, active_t, direction, dx)
+        flux_in, flux_out = float(flux_in), float(flux_out)
+    mag_in, mag_out = abs(flux_in), abs(flux_out)
+    mag_avg = 0.5 * (mag_in + mag_out)
+    if mag_avg > TINY_FLUX:
+        rel_diff = abs(mag_in - mag_out) / mag_avg
+        flux_conserved = rel_diff <= FLUX_TOL
+    else:
+        rel_diff, flux_conserved = 0.0, True
+    if verbose > 0:
+        print(f"  Flux in/out: {flux_in:.8f} / {flux_out:.8f}  "
+              f"rel_diff: {rel_diff:.3e}  conserved: {flux_conserved}")
+
+    # geometry: RealBox is [0, N_d * dx_d] per axis (Diffusion.cpp:302-305)
+    L = shape[direction] * float(dx[direction])
+    others = [a for a in range(3) if a != direction]
+    A = (shape[others[0]] * float(dx[others[0]])) * (
+        shape[others[1]] * float(dx[others[1]]))
+    grad_phi = (vhi - vlo) / L
+
+    # tau computation + edge cases (TortuosityHypre.cpp:843-877)
+    if not flux_conserved:
+        value, deff = math.nan, math.nan
+    elif mag_avg < TINY_FLUX:
+        value, deff = math.inf, 0.0
+    elif abs(grad_phi) < TINY_FLUX:
+        value, deff = math.inf, 0.0
+    else:
+        deff = (mag_avg / A) / abs(grad_phi)
+        value = math.inf if abs(deff) < TINY_FLUX else active_vf / deff
+
+    return TortuosityResult(
+        value=value, deff=deff, active_vf=active_vf,
+        flux_in=flux_in, flux_out=flux_out, flux_rel_diff=rel_diff,
+        flux_conserved=flux_conserved, iterations=iterations,
+        rel_res=rel_res, converged=converged, direction=direction,
+        phi=x_full if return_fields else None,
+        active=active if return_fields else None,
+        history=hist,
+    )
