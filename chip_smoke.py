@@ -7,21 +7,25 @@ Phases (each failure exits non-zero and prints no result line):
 
 1. card      - the card's name and power limit (nvidia-smi), the versions,
                and the build of the CUDA kernels from ``csrc/`` (ptxas
-               register and spill report);
+               register and spill report, kept beside each library);
 2. kernels   - every K1 mode (matvec, matvec+dot, resid, sweep, restrict)
                in float32 and float64 and both K2 modes, held against their
                plain PyTorch versions on odd, restrict-eligible, periodic and
                anisotropic systems; the fused dot must repeat bit for bit;
-3. main      - ``tortuosity`` on a 512^3 blobs volume (porosity 0.4,
-               seed 0, direction X, eps 1e-9, default preconditioner), then
-               the same volume with dx = (1, 1, 2), which semi-coarsens and
-               so runs K1 resid; the launch counters are zeroed before and
-               read after, and every kernel of the path must have launched
-               while no plain version saw a CUDA tensor;
+3. main      - two main paths, each driven on its own: ``tortuosity`` on a
+               512^3 blobs volume (porosity 0.4, seed 0, direction X, eps
+               1e-9, default preconditioner) with dx = (1, 1, 1), which
+               coarsens through K1 restrict, and with dx = (1, 1, 2), which
+               semi-coarsens and runs K1 resid.  The launch counters are
+               zeroed just before each call and read just after; each path
+               must launch its kernels (K1 matvec+dot at least once per
+               PCG iteration) while no plain version sees a CUDA tensor;
 4. parity    - the same call at 64^3 on the GPU and on the CPU;
-5. times     - each kernel against its plain version on the main path's
-               own system and level shapes: max error, CUDA-event times,
-               the compulsory-bytes bound and launches per PCG iteration.
+5. times     - for each path, its kernels against their plain versions on
+               that path's own 512^3 system and Galerkin levels: max error,
+               the kernel's time from a CUDA graph (``ms``) and back to back
+               from the host (``ms_eager``), the plain version's time, the
+               compulsory-bytes bound and launches per PCG iteration.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Volumes are made with
@@ -38,6 +42,8 @@ import time
 
 import numpy as np
 import torch
+
+from openimpala_tpu_torch.utils.sample_data import make_blobs
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 and f64
 # vector rates.  The bound of a kernel is the larger of bytes / bandwidth
@@ -69,6 +75,16 @@ PATH_KERNELS = {
     "k2_matvec_f32": (K2_SRC, K2_TPU, 24.0, 16, torch.float32),
     "k2_sweep_f32": (K2_SRC, K2_TPU, 28.0, 20, torch.float32),
 }
+_BOTH = ("k1_matvec_dot_f32", "k1_matvec_f32", "k1_sweep_f32",
+         "k1_matvec_f64", "k2_matvec_f32", "k2_sweep_f32")
+# the main paths, each driven and counted on its own: label -> (dx, the
+# kernels it must launch).  Isotropic spacing coarsens 2x2x2 through K1
+# restrict; dx = (1, 1, 2) semi-coarsens, so its fine level runs K1 resid.
+PATHS = {
+    "iso": ((1.0, 1.0, 1.0), _BOTH + ("k1_restrict_f32",)),
+    "aniso": ((1.0, 1.0, 2.0), _BOTH + ("k1_resid_f32",)),
+}
+assert {k for _, ks in PATHS.values() for k in ks} == set(PATH_KERNELS)
 
 
 class SmokeFailure(RuntimeError):
@@ -78,25 +94,6 @@ class SmokeFailure(RuntimeError):
 def require(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
-
-
-def make_blobs(n: int, porosity: float, seed: int = 0) -> np.ndarray:
-    """(X,Y,Z) uint8 volume: 1 = pore (fraction ~= porosity), 0 = solid.
-    Coarse Gaussian noise, trilinearly upsampled, thresholded at the
-    porosity quantile (the repo's sample-data recipe)."""
-    rng = np.random.default_rng(seed)
-    coarse = max(2, n // 8)
-    field = rng.standard_normal((coarse,) * 3)
-    for axis in range(3):
-        src = field.shape[axis]
-        pos = np.linspace(0, src - 1, n)
-        i0 = np.clip(pos.astype(int), 0, src - 2)
-        t = (pos - i0).reshape([-1 if a == axis else 1 for a in range(3)])
-        lo = np.take(field, i0, axis=axis)
-        hi = np.take(field, i0 + 1, axis=axis)
-        field = lo * (1 - t) + hi * t
-    thr = np.quantile(field, porosity)
-    return (field < thr).astype(np.uint8)
 
 
 def log(*a):
@@ -113,7 +110,8 @@ def card_line() -> str:
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean milliseconds of ``fn`` over ``reps`` back-to-back calls, timed
-    with CUDA events after ``warmup`` calls."""
+    with CUDA events after ``warmup`` calls.  The window includes the
+    host's cost of enqueueing each call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -125,6 +123,35 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 10, replays: int = 5) -> float:
+    """Mean device milliseconds of one ``fn`` call: ``reps`` calls captured
+    in one CUDA graph, replayed ``replays`` times between CUDA events, so
+    the host's per-launch cost stays out of the window."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (reps * replays)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 class Checker:
@@ -235,9 +262,9 @@ def phase_card():
         f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}  "
         f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    built = sc.build(ptxas_info=True)
+    built = sc.build()
     log(f"build: {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
-        "(one nvcc per source, in parallel)")
+        "(one nvcc per source, in parallel, or the cached library)")
     for name, (path, out) in built.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -279,19 +306,21 @@ def phase_kernels(chk, seed):
 
 
 def phase_main(vol, n):
+    """Drive each main path on its own: the counts are zeroed just before
+    its ``tortuosity`` call and read just after."""
     from openimpala_tpu_torch import tortuosity
     from openimpala_tpu_torch.ops import stencil_cuda as sc
 
     runs = {}
     torch.cuda.reset_peak_memory_stats()
-    sc.reset_counts()
-    for label, dx in (("iso", (1.0, 1.0, 1.0)), ("aniso", (1.0, 1.0, 2.0))):
+    for label, (dx, expect) in PATHS.items():
         timings = {}
+        sc.reset_counts()
         t0 = time.perf_counter()
         res = tortuosity(vol, 1, "X", eps=1e-9, dx=dx, device="cuda",
                          timings=timings, return_fields=(label == "iso"))
         wall = time.perf_counter() - t0
-        runs[label] = (res, timings, wall, dict(sc.launches))
+        counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
         log(f"main[{label}] {n}^3 dx={dx}: tau={res.value!r} "
             f"active_vf={res.active_vf!r} iterations={res.iterations} "
             f"rel_res={res.rel_res!r} flux_rel_diff={res.flux_rel_diff!r} "
@@ -299,26 +328,26 @@ def phase_main(vol, n):
             f"wall_s={wall:.3f}")
         log(f"main[{label}] step_s " + json.dumps(
             {k: round(v, 4) for k, v in timings.items()}))
+        log(f"main[{label}] launches " + json.dumps(counts, sort_keys=True))
+        log(f"main[{label}] plain_on_cuda " + json.dumps(plain,
+                                                          sort_keys=True))
         require(res.converged and res.flux_conserved,
                 f"main[{label}]: converged={res.converged} "
                 f"flux_conserved={res.flux_conserved}")
-    counts = dict(sc.launches)
-    plain = dict(sc.plain_on_cuda)
-    log("main launches " + json.dumps(counts, sort_keys=True))
-    log("main plain_on_cuda " + json.dumps(plain, sort_keys=True))
+        dots = counts.get("k1_matvec_dot_f32", 0)
+        require(dots >= res.iterations,
+                f"main[{label}]: K1 matvec+dot launched {dots} times for "
+                f"{res.iterations} PCG iterations")
+        missing = [k for k in expect if counts.get(k, 0) == 0]
+        require(not missing, f"main[{label}]: never launched: {missing}")
+        require(not plain,
+                f"main[{label}]: plain versions ran on CUDA tensors: {plain}")
+        runs[label] = {"iterations": res.iterations, "counts": counts}
+        if label == "iso":
+            active = res.active
+        del res
     log(f"main peak_mem_GB {torch.cuda.max_memory_allocated() / 1e9:.2f}")
-
-    iso_counts = runs["iso"][3]
-    it_iso = runs["iso"][0].iterations
-    require(iso_counts.get("k1_matvec_dot_f32", 0) >= it_iso,
-            f"K1 matvec+dot launched {iso_counts.get('k1_matvec_dot_f32', 0)}"
-            f" times for {it_iso} PCG iterations")
-    for name in PATH_KERNELS:
-        require(counts.get(name, 0) > 0, f"{name} never launched on the "
-                                         "main path")
-    require(not plain, f"plain versions ran on CUDA tensors: {plain}")
-    per_iter = {k: v / it_iso for k, v in iso_counts.items()}
-    return runs, counts, per_iter
+    return runs, active
 
 
 def phase_parity(seed):
@@ -337,37 +366,19 @@ def phase_parity(seed):
             "parity: iterations differ by more than 1")
 
 
-def phase_times(chk, active_np, seed, counts, per_iter):
-    """Hold each path kernel against its plain version on the main path's
-    own system and levels, and time both with CUDA events."""
+def _path_fns(system, levels, x, r):
+    """name -> (kernel call, plain call, shape) for the kernels of one main
+    path, on that path's system and Galerkin levels."""
     from openimpala_tpu_torch.ops import stencil as st
     from openimpala_tpu_torch.ops import stencil_cuda as sc
-    from openimpala_tpu_torch.ops.stencil import make_tortuosity_system
-    from openimpala_tpu_torch.solve.preconditioners import (
-        GalerkinMGPreconditioner)
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    active = torch.from_numpy(active_np).to(dev)
-    system = make_tortuosity_system(active, 0, -1.0, 1.0, dtype=torch.float32)
-    del active
-    mg = GalerkinMGPreconditioner.from_system(system)
     code, w, per = system.code, system.w, system.periodic
     shape = tuple(code.shape)
-    case = "main-path system " + "x".join(map(str, shape))
-    x, r = check_k1(chk, system, gen, torch.float32, case)
     x64 = x.double()
-    chk.close("k1_matvec_f64",
-              sc.k1_stencil("matvec", x64, None, code, w, per),
-              st.apply_code_plain(x64, code, w, per), torch.float64, case)
-    levels = {}
-    for li, lvl in enumerate(mg.levels):
-        lcase = f"main-path level {li + 1} " + "x".join(
-            map(str, lvl.diag.shape))
-        levels[li + 1] = (lvl,) + check_k2(chk, lvl, gen, lcase)
-
-    reps = 20
-    fns = {
+    # K2 sweep runs on level 1 only; K2 matvec once per V-cycle on level 1
+    # and about coarse_sweeps times on the coarsest level, where it is timed
+    (l1, x1, r1), (lc, xc, _) = levels[0], levels[-1]
+    return {
         "k1_matvec_dot_f32": (
             lambda: sc.k1_stencil("matvec", x, None, code, w, per,
                                   with_dot=True),
@@ -387,22 +398,31 @@ def phase_times(chk, active_np, seed, counts, per_iter):
         "k1_matvec_f64": (
             lambda: sc.k1_stencil("matvec", x64, None, code, w, per),
             lambda: st.apply_code_plain(x64, code, w, per), shape),
+        "k2_sweep_f32": (
+            lambda: sc.k2_conductance("sweep", x1, r1, l1.cx, l1.cy, l1.cz,
+                                      l1.diag, omega=0.9),
+            lambda: l1.sweep_plain(x1, r1, 0.9), tuple(l1.diag.shape)),
+        "k2_matvec_f32": (
+            lambda: sc.k2_conductance("matvec", xc, None, lc.cx, lc.cy, lc.cz,
+                                      lc.diag),
+            lambda: lc.apply_plain(xc), tuple(lc.diag.shape)),
     }
-    # K2: sweep runs on level 1 only; matvec once per V-cycle on level 1 and
-    # ~coarse_sweeps times on the coarsest level, where it is timed
-    l1, x1, r1 = levels[1]
-    lc, xc, _ = levels[len(mg.levels)]
-    fns["k2_sweep_f32"] = (
-        lambda: sc.k2_conductance("sweep", x1, r1, l1.cx, l1.cy, l1.cz,
-                                  l1.diag, omega=0.9),
-        lambda: l1.sweep_plain(x1, r1, 0.9), tuple(l1.diag.shape))
-    fns["k2_matvec_f32"] = (
-        lambda: sc.k2_conductance("matvec", xc, None, lc.cx, lc.cy, lc.cz,
-                                  lc.diag),
-        lambda: lc.apply_plain(xc), tuple(lc.diag.shape))
-    k2_level1_ms = cuda_ms(
-        lambda: sc.k2_conductance("matvec", x1, None, l1.cx, l1.cy, l1.cz,
-                                  l1.diag), reps)
+
+
+def phase_times(chk, active_np, seed, runs):
+    """For each main path, hold its kernels against their plain versions on
+    that path's own system and Galerkin levels, then time them: the kernel
+    from a CUDA graph (``ms``) and back to back from the host
+    (``ms_eager``), the plain version with CUDA events."""
+    from openimpala_tpu_torch.ops import stencil as st
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+    from openimpala_tpu_torch.ops.stencil import make_tortuosity_system
+    from openimpala_tpu_torch.solve.preconditioners import (
+        GalerkinMGPreconditioner)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    active = torch.from_numpy(active_np).to(dev)
 
     # device-to-device copy rate, for reading the bound against this card
     big = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=dev)
@@ -411,32 +431,67 @@ def phase_times(chk, active_np, seed, counts, per_iter):
     del big
     log(f"times: device copy {copy_gbs:.1f} GB/s (read+write)")
 
+    by_path = {name: {} for name in PATH_KERNELS}
+    for label, (dx, expect) in PATHS.items():
+        system = make_tortuosity_system(active, 0, -1.0, 1.0, dx=dx,
+                                        dtype=torch.float32)
+        mg = GalerkinMGPreconditioner.from_system(system)
+        code, w, per = system.code, system.w, system.periodic
+        case = f"main[{label}] system " + "x".join(map(str, code.shape))
+        modes = [m for m in ("matvec_dot", "matvec", "resid", "sweep",
+                             "restrict") if f"k1_{m}_f32" in expect]
+        x, r = check_k1(chk, system, gen, torch.float32, case, modes=modes)
+        x64 = x.double()
+        chk.close("k1_matvec_f64",
+                  sc.k1_stencil("matvec", x64, None, code, w, per),
+                  st.apply_code_plain(x64, code, w, per), torch.float64, case)
+        del x64
+        levels = [(lvl,) + check_k2(chk, lvl, gen,
+                                    f"main[{label}] level {li + 1} " +
+                                    "x".join(map(str, lvl.diag.shape)))
+                  for li, lvl in enumerate(mg.levels)]
+        it = runs[label]["iterations"]
+        fns = _path_fns(system, levels, x, r)
+        for name in expect:
+            kfn, pfn, kshape = fns[name]
+            n = runs[label]["counts"].get(name, 0)
+            t = {"launches": n, "launches_per_pcg_iter": n / it,
+                 "shape": list(kshape), "ms": graph_ms(kfn),
+                 "ms_eager": cuda_ms(kfn, 20),
+                 "plain_ms": cuda_ms(pfn, 3, warmup=1)}
+            by_path[name][label] = t
+            log(f"times {name} [{label}] {kshape}: {t['ms']:.4f} ms graph, "
+                f"{t['ms_eager']:.4f} ms eager, plain {t['plain_ms']:.3f} ms;"
+                f" launches {n} ({t['launches_per_pcg_iter']:.2f}/iter)")
+        del system, mg, levels, fns, x, r
+        torch.cuda.empty_cache()
+
     kernels = []
     for name, (src, tpu, bpc, fpc, dtype) in PATH_KERNELS.items():
-        kfn, pfn, kshape = fns[name]
-        cells = float(np.prod(kshape))
-        ms = cuda_ms(kfn, reps)
-        plain_ms = cuda_ms(pfn, 3, warmup=1)
+        paths = by_path[name]
+        # the headline numbers come from the path that launches it most
+        main_label = max(paths, key=lambda p: paths[p]["launches"])
+        t = paths[main_label]
+        cells = float(np.prod(t["shape"]))
         bytes_ms = bpc * cells / PEAK_BYTES_S * 1e3
         ops_ms = fpc * cells / PEAK_FLOPS_S[dtype] * 1e3
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": int(counts.get(name, 0)),
+            "launches": sum(p["launches"] for p in paths.values()),
             "max_abs_err": chk.max_err.get(name, None),
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
-            "shape": list(kshape),
-            "launches_per_pcg_iter": per_iter.get(name, 0.0),
+            "timed_on": main_label, "shape": t["shape"],
+            "ms_eager": t["ms_eager"], "paths": paths,
         }
-        if name == "k2_matvec_f32":
-            entry["ms_level1"] = k2_level1_ms
         kernels.append(entry)
-        log(f"times {name} {kshape}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-            f"bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}, "
-            f"{entry['bound_ms'] / ms:.1%} of bound) "
-            f"launches/iter {entry['launches_per_pcg_iter']:.2f}")
+        log(f"times {name}: {entry['ms']:.4f} ms on {main_label} "
+            f"{tuple(t['shape'])}, bound {entry['bound_ms']:.4f} ms by "
+            f"{entry['bound_by']} ({entry['bound_ms'] / entry['ms']:.1%} of "
+            f"bound); launches " + json.dumps(
+                {p: v["launches"] for p, v in paths.items()}))
     return kernels
 
 
@@ -461,12 +516,11 @@ def main(argv=None):
         log(f"volume {args.n}^3 blobs porosity 0.4 seed {SEED}: "
             f"{time.perf_counter() - t0:.1f} s, pore fraction "
             f"{vol.mean():.4f}")
-        runs, counts, per_iter = phase_main(vol, args.n)
-        active_np = runs["iso"][0].active
-        del vol, runs
+        runs, active_np = phase_main(vol, args.n)
+        del vol
         phase_parity(SEED)
         torch.cuda.empty_cache()
-        kernels = phase_times(chk, active_np, SEED, counts, per_iter)
+        kernels = phase_times(chk, active_np, SEED, runs)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

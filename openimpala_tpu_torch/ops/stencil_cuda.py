@@ -30,8 +30,9 @@ one-block launch.
 Build: each source is compiled by its own ``nvcc`` into a plain-C shared
 library (``-gencode arch=compute_90a,code=sm_90a``), all started together,
 on first use, into ``openimpala_tpu_torch/_build/`` under a name that
-carries a hash of the sources and flags; the libraries are loaded with
-ctypes.  Nothing is compiled or loaded at import time.
+carries a hash of the sources and flags, with the compiler's output
+(ptxas's register and spill report) beside it as ``.log``; the libraries
+are loaded with ctypes.  Nothing is compiled or loaded at import time.
 
 Counters: every launch adds one to ``launches[name]``
 (``k1_<mode>[_dot]_<f32|f64>``, ``k2_<mode>_<f32|f64>``), and every call of
@@ -56,7 +57,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {"k1": "k1_stencil.cu", "k2": "k2_conductance.cu"}
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 K1_MODES = {"matvec": 0, "resid": 1, "sweep": 2, "restrict": 3}
 K2_MODES = {"matvec": 0, "sweep": 1}
@@ -100,22 +101,22 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names=tuple(SOURCES), ptxas_info: bool = False) -> dict:
+def build(names=tuple(SOURCES)) -> dict:
     """Compile the named kernels (one ``nvcc`` each, run in parallel) unless
     an up-to-date library exists.  Returns ``{name: (path, compiler
-    output)}``; ``ptxas_info`` adds ``-Xptxas -v`` (registers, spills; the
-    same binary) and always recompiles.  Raises with the compiler output on
-    failure."""
+    output)}``; the output (with ptxas's register and spill report) is kept
+    beside the library as ``<library>.log``.  Raises with the compiler
+    output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    extra = ("-Xptxas", "-v") if ptxas_info else ()
     jobs, result = [], {}
     for name in names:
         out = _lib_path(name)
-        if out.exists() and not ptxas_info:
-            result[name] = (out, "")
+        log_path = out.with_suffix(".log")
+        if out.exists() and log_path.exists():
+            result[name] = (out, log_path.read_text())
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-I", str(CSRC), "-o", str(tmp),
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / SOURCES[name])]
         jobs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -125,7 +126,11 @@ def build(names=tuple(SOURCES), ptxas_info: bool = False) -> dict:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {SOURCES[name]}:\n{log}")
             continue
-        # atomic: a concurrent builder never loads a half-written file
+        # atomic: a concurrent builder never loads a half-written file, and
+        # the log lands first, so a library that exists has its log
+        log_tmp = tmp.with_suffix(".log")
+        log_tmp.write_text(log)
+        os.replace(log_tmp, out.with_suffix(".log"))
         os.replace(tmp, out)
         result[name] = (out, log)
     if failed:

@@ -1,1 +1,1 @@
-"""Direction helpers, device rule and step timing."""
+"""Direction helpers, device rule, step timing and sample volumes."""

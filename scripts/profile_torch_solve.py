@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's flow-through solve goes on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_solve.py [--n 512]
+    python3 -m scripts.profile_torch_solve [--n 512]    # from the repo root
 
 Runs ``openimpala_tpu_torch.tortuosity`` once to build the kernels and warm
 the allocator, then once more under ``torch.profiler`` (CPU + CUDA
@@ -19,15 +19,12 @@ import json
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-
-from chip_smoke import make_blobs  # noqa: E402
-from openimpala_tpu_torch import tortuosity  # noqa: E402
+from openimpala_tpu_torch import tortuosity
+from openimpala_tpu_torch.utils.sample_data import make_blobs
 
 HAND = ("k1_planes", "k1_restrict", "k2_cells", "reduce_partials")
 

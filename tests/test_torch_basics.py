@@ -150,6 +150,30 @@ def test_no_jax_imports_in_port_or_chip_smoke():
                 f"{path.relative_to(REPO)} imports {mod}"
 
 
+@pytest.mark.parametrize("n,porosity,seed", [(16, 0.4, 0), (21, 0.3, 5)])
+def test_make_blobs_matches_sample_data_recipe(n, porosity, seed):
+    from openimpala_tpu_torch.utils.sample_data import make_blobs
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    try:
+        from make_sample_data import make_blobs as script_make_blobs
+    finally:
+        sys.path.remove(str(REPO / "scripts"))
+    np.testing.assert_array_equal(make_blobs(n, porosity, seed),
+                                  script_make_blobs(n, porosity, seed))
+
+
+def test_chip_smoke_refuses_without_cuda():
+    code = ("import sys, torch; torch.cuda.is_available = lambda: False; "
+            "sys.argv = ['chip_smoke.py']; import chip_smoke; "
+            "sys.exit(chip_smoke.main())")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
 def test_device_rule(monkeypatch, blob_phase):
     import openimpala_tpu_torch as oit
 
