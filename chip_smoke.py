@@ -11,20 +11,33 @@ Phases (each failure exits non-zero and prints no result line):
 2. kernels   - every K1 mode (matvec, matvec+dot, resid, sweep, restrict)
                in float32 and float64 and both K2 modes, held against their
                plain PyTorch versions on odd, restrict-eligible, periodic and
-               anisotropic systems; the fused dot must repeat bit for bit;
-3. main      - two main paths, each driven on its own: ``tortuosity`` on a
-               512^3 blobs volume (porosity 0.4, seed 0, direction X, eps
-               1e-9, default preconditioner) with dx = (1, 1, 1), which
-               coarsens through K1 restrict, and with dx = (1, 1, 2), which
-               semi-coarsens and runs K1 resid.  The launch counters are
-               zeroed just before each call and read just after; each path
-               must launch its kernels (K1 matvec+dot at least once per
-               PCG iteration) while no plain version sees a CUDA tensor;
-4. parity    - the same call at 64^3 on the GPU and on the CPU;
+               anisotropic systems; the fused dot must repeat bit for bit.
+               Every K3 mode (apply, the nearest-neighbour prefix apply,
+               resid, sweep) with float32 and float64 ``x`` and full-
+               precision and bfloat16 coefficients, on synthetic 33- and
+               125-tap levels (odd extents, and extents below the taps'
+               reach) and on the levels that ``SAMGPreconditioner`` builds
+               for a clamped and a periodic system;
+3. main      - three main paths, each driven on its own: ``tortuosity`` on
+               a 512^3 blobs volume (porosity 0.4, seed 0, direction X, eps
+               1e-9) with the default preconditioner and dx = (1, 1, 1),
+               which coarsens through K1 restrict; with dx = (1, 1, 2),
+               which semi-coarsens and runs K1 resid; and with
+               ``precond="sa"``, the smoothed-aggregation cycle, K1 on the
+               fine level and K3 on every coarse level.  The launch counters
+               are zeroed just before each call and read just after; each
+               path must launch its kernels (K1 matvec+dot at least once per
+               PCG iteration) while no plain version sees a CUDA tensor, and
+               the ``sa`` path's tau must agree with the default path's to
+               1e-6;
+4. parity    - the same call at 64^3 on the GPU and on the CPU, with the
+               default and with the ``sa`` preconditioner;
 5. times     - for each path, its kernels against their plain versions on
-               that path's own 512^3 system and Galerkin levels: max error,
-               the kernel's time from a CUDA graph (``ms``) and back to back
-               from the host (``ms_eager``), the plain version's time, the
+               that path's own 512^3 system and coarse levels (K3 on every
+               level of the ``sa`` path's hierarchy, each with the launches
+               the run made at that extent): max error, the kernel's time
+               from a CUDA graph (``ms``) and back to back from the host
+               (``ms_eager``), the plain version's time, the
                compulsory-bytes bound and launches per PCG iteration.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
@@ -35,6 +48,7 @@ numpy from a seed; fields on the card from a seeded ``torch.Generator``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -43,6 +57,7 @@ import time
 import numpy as np
 import torch
 
+from openimpala_tpu_torch.ops.offset_cuda import k3_cost
 from openimpala_tpu_torch.utils.sample_data import make_blobs
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 and f64
@@ -58,12 +73,20 @@ TOL = {torch.float32: (1e-5, 1e-5), torch.float64: (1e-12, 1e-12)}
 # sum in the working dtype
 DOT_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 
+# K3 float32: a sum of up to 125 products, held to the tolerance the JAX
+# package's own kernel test uses; the kernel and the plain form differ by
+# FMA contraction only
+K3_TOL = {torch.float32: (2e-5, 2e-5), torch.float64: (1e-12, 1e-12)}
+
 K1_SRC = "openimpala_tpu_torch/csrc/k1_stencil.cu"
 K2_SRC = "openimpala_tpu_torch/csrc/k2_conductance.cu"
 K1_TPU = "openimpala_tpu/ops/stencil_pallas.py:815"
 K2_TPU = "openimpala_tpu/ops/stencil_pallas.py:757"
+K3_SRC = "openimpala_tpu_torch/csrc/k3_offset.cu"
+K3_TPU = "openimpala_tpu/ops/offset_pallas.py:170"
 
-# compulsory bytes and flops per (fine) cell of each kernel on the main path
+# compulsory bytes and flops per (fine) cell of each kernel on the main
+# paths; K3's depend on the taps of the level the run built (k3_cost)
 PATH_KERNELS = {
     # name: (source, replaces, bytes/cell, flops/cell, dtype)
     "k1_matvec_dot_f32": (K1_SRC, K1_TPU, 10.0, 12, torch.float32),
@@ -74,17 +97,26 @@ PATH_KERNELS = {
     "k1_matvec_f64": (K1_SRC, K1_TPU, 18.0, 10, torch.float64),
     "k2_matvec_f32": (K2_SRC, K2_TPU, 24.0, 16, torch.float32),
     "k2_sweep_f32": (K2_SRC, K2_TPU, 28.0, 20, torch.float32),
+    "k3_apply_f32": (K3_SRC, K3_TPU, None, None, torch.float32),
+    "k3_apply_prefix_f32": (K3_SRC, K3_TPU, None, None, torch.float32),
+    "k3_resid_f32": (K3_SRC, K3_TPU, None, None, torch.float32),
+    "k3_sweep_f32": (K3_SRC, K3_TPU, None, None, torch.float32),
 }
-_BOTH = ("k1_matvec_dot_f32", "k1_matvec_f32", "k1_sweep_f32",
-         "k1_matvec_f64", "k2_matvec_f32", "k2_sweep_f32")
-# the main paths, each driven and counted on its own: label -> (dx, the
-# kernels it must launch).  Isotropic spacing coarsens 2x2x2 through K1
-# restrict; dx = (1, 1, 2) semi-coarsens, so its fine level runs K1 resid.
+_K1 = ("k1_matvec_dot_f32", "k1_matvec_f32", "k1_sweep_f32", "k1_matvec_f64")
+_K2 = ("k2_matvec_f32", "k2_sweep_f32")
+_K3 = ("k3_apply_f32", "k3_apply_prefix_f32", "k3_resid_f32", "k3_sweep_f32")
+# the main paths, each driven and counted on its own: label -> (dx, precond,
+# the kernels it must launch).  Isotropic spacing coarsens 2x2x2 through K1
+# restrict; dx = (1, 1, 2) semi-coarsens, so its fine level runs K1 resid;
+# "sa" runs K1 resid and two more matvecs per cycle on the fine level (the
+# smoothed transfers) and K3 on every coarse level: the full apply while
+# probing, the prefix apply in the transfers of level 1.
 PATHS = {
-    "iso": ((1.0, 1.0, 1.0), _BOTH + ("k1_restrict_f32",)),
-    "aniso": ((1.0, 1.0, 2.0), _BOTH + ("k1_resid_f32",)),
+    "iso": ((1.0, 1.0, 1.0), "auto", _K1 + _K2 + ("k1_restrict_f32",)),
+    "aniso": ((1.0, 1.0, 2.0), "auto", _K1 + _K2 + ("k1_resid_f32",)),
+    "sa": ((1.0, 1.0, 1.0), "sa", _K1 + _K3 + ("k1_resid_f32",)),
 }
-assert {k for _, ks in PATHS.values() for k in ks} == set(PATH_KERNELS)
+assert {k for _, _, ks in PATHS.values() for k in ks} == set(PATH_KERNELS)
 
 
 class SmokeFailure(RuntimeError):
@@ -162,8 +194,8 @@ class Checker:
         self.max_err: dict = {}
         self.cases: dict = {}
 
-    def close(self, name, got, want, dtype, case):
-        rtol, atol = TOL[dtype]
+    def close(self, name, got, want, dtype, case, tol=TOL):
+        rtol, atol = tol[dtype]
         require(got.shape == want.shape,
                 f"{name} [{case}]: shape {tuple(got.shape)} != "
                 f"{tuple(want.shape)}")
@@ -254,6 +286,63 @@ def check_k2(chk, level, gen, case):
     return x, r
 
 
+def synthetic_offset_level(rng, shape, taps, dtype, device):
+    """A packed offset level with random coefficients, made with numpy:
+    33 taps (the l_inf<=1 ball and the axial +-2 taps, the support of SA
+    level 1) or 125 (every offset of [-2, 2]^3, level 2).  The diagonal has
+    exact zeros (the resid and sweep masks) and stays away from (0, 0.9),
+    where omega/d would amplify rounding."""
+    from openimpala_tpu_torch.ops.offset import order_offsets
+    from openimpala_tpu_torch.solve.sa import OffsetLevel
+
+    rad = range(-2, 3)
+    sup = [(i, j, k) for i in rad for j in rad for k in rad]
+    if taps == 33:
+        sup = [o for o in sup if max(map(abs, o)) <= 1
+               or sum(map(abs, o)) == 2 == max(map(abs, o))]
+    offsets, nn = order_offsets(sup)
+    require(len(offsets) == taps and offsets[0] == (0, 0, 0),
+            f"synthetic level: {len(offsets)} taps for {taps}")
+    c = rng.standard_normal((shape[0], taps) + tuple(shape[1:]))
+    c[:, 0] = np.where(np.abs(c[:, 0]) < 0.3, 0.0, 3.0 * c[:, 0])
+    packed = torch.from_numpy(c).to(device=device, dtype=dtype)
+    return OffsetLevel(packed=packed, offsets=offsets, nn=nn)
+
+
+def check_k3(chk, lvl, gen, case, xdtypes):
+    """Every K3 mode, and the nearest-neighbour prefix apply, on one
+    OffsetLevel against the plain forms, for each ``x`` dtype given (the
+    coefficients are ``lvl.packed``'s: bfloat16 or the dtype of ``x``)."""
+    from openimpala_tpu_torch.ops import offset as po
+    from openimpala_tpu_torch.ops import offset_cuda as oc
+
+    pk, offs = lvl.packed, lvl.offsets
+    shape = tuple(lvl.diag.shape)
+    ctag = "bf16" if pk.dtype == torch.bfloat16 else "full"
+    for dtype in xdtypes:
+        x = torch.randn(shape, generator=gen, dtype=dtype, device=pk.device)
+        r = torch.randn(shape, generator=gen, dtype=dtype, device=pk.device)
+        tag, c = _tag(dtype), f"{case} coeff {ctag}"
+        chk.close(f"k3_apply_{tag}", oc.k3_offset("apply", x, None, pk, offs),
+                  po.offset_apply_plain(x, pk, offs), dtype, c, tol=K3_TOL)
+        if lvl.nn < len(offs):
+            chk.close(f"k3_apply_prefix_{tag}",
+                      oc.k3_offset("apply", x, None, pk, offs, n_taps=lvl.nn),
+                      po.offset_apply_plain(x, pk, offs, n_taps=lvl.nn),
+                      dtype, c, tol=K3_TOL)
+        chk.close(f"k3_resid_{tag}", oc.k3_offset("resid", x, r, pk, offs),
+                  po.offset_resid_plain(x, r, pk, offs), dtype, c, tol=K3_TOL)
+        chk.close(f"k3_sweep_{tag}",
+                  oc.k3_offset("sweep", x, r, pk, offs, omega=0.9),
+                  po.offset_sweep_plain(x, r, pk, offs, 0.9), dtype, c,
+                  tol=K3_TOL)
+    return x, r
+
+
+def _bf16(lvl):
+    return dataclasses.replace(lvl, packed=lvl.packed.to(torch.bfloat16))
+
+
 def phase_card():
     from openimpala_tpu_torch.ops import stencil_cuda as sc
 
@@ -276,10 +365,42 @@ def phase_kernels(chk, seed):
         make_cell_problem_system, make_tortuosity_system)
     from openimpala_tpu_torch.solve.preconditioners import (
         GalerkinMGPreconditioner, fine_conductances)
+    from openimpala_tpu_torch.solve.sa import SAMGPreconditioner
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.default_rng(seed)
+    both = (torch.float32, torch.float64)
+    # K3 on synthetic levels: an odd extent, 4^3 (taps at +-2 reach half
+    # the extent) and 3x2x1 (taps beyond the extent)
+    for shape in ((25, 18, 17), (4, 4, 4), (3, 2, 1)):
+        for taps in (33, 125):
+            case = f"synthetic {taps} taps " + "x".join(map(str, shape))
+            for dtype in both:
+                lvl = synthetic_offset_level(rng, shape, taps, dtype, dev)
+                check_k3(chk, lvl, gen, case, (dtype,))
+            check_k3(chk, _bf16(lvl), gen, case, both)
+    # K3 on the levels SAMGPreconditioner builds (K1 and K3 do the probing)
+    for case, shape, kind in (("sa clamped 48x40x32", (48, 40, 32), "flow"),
+                              ("sa periodic 40x40x40", (40, 40, 40), "cell")):
+        mask = torch.from_numpy(rng.random(shape) < 0.7).to(dev)
+        for dtype in both:
+            if kind == "flow":
+                system = make_tortuosity_system(mask, 0, -1.0, 1.0,
+                                                dtype=dtype)
+            else:
+                system = make_cell_problem_system(mask, 1, dtype=dtype)
+            sa = SAMGPreconditioner.from_system(system)
+            require(len(sa.levels) == 3, f"{case}: {len(sa.levels)} levels")
+            for li, lvl in enumerate(sa.levels):
+                lcase = (f"{case} level {li + 1} "
+                         f"{len(lvl.offsets)} taps nn {lvl.nn}")
+                check_k3(chk, lvl, gen, lcase, (dtype,))
+                if dtype == torch.float32:
+                    check_k3(chk, _bf16(lvl), gen, lcase, both)
+            y = sa(torch.where(system.free, torch.randn(
+                shape, generator=gen, dtype=dtype, device=dev), 0.0))
+            require(bool(torch.isfinite(y).all()), f"{case}: cycle not finite")
     cases = [
         ("odd 100x98x97 iso clamped", (100, 98, 97), "flow", (1, 1, 1)),
         ("even 64x48x40 iso clamped", (64, 48, 40), "flow", (1, 1, 1)),
@@ -312,23 +433,31 @@ def phase_main(vol, n):
     from openimpala_tpu_torch.ops import stencil_cuda as sc
 
     runs = {}
-    torch.cuda.reset_peak_memory_stats()
-    for label, (dx, expect) in PATHS.items():
+    for label, (dx, precond, expect) in PATHS.items():
         timings = {}
+        torch.cuda.reset_peak_memory_stats()
         sc.reset_counts()
         t0 = time.perf_counter()
-        res = tortuosity(vol, 1, "X", eps=1e-9, dx=dx, device="cuda",
-                         timings=timings, return_fields=(label == "iso"))
+        res = tortuosity(vol, 1, "X", eps=1e-9, dx=dx, precond=precond,
+                         device="cuda", timings=timings,
+                         return_fields=(label == "iso"))
         wall = time.perf_counter() - t0
         counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
-        log(f"main[{label}] {n}^3 dx={dx}: tau={res.value!r} "
+        at = dict(sc.launches_at)  # (name, extent) -> K3 launches
+        log(f"main[{label}] {n}^3 dx={dx} precond={precond}: "
+            f"tau={res.value!r} "
             f"active_vf={res.active_vf!r} iterations={res.iterations} "
             f"rel_res={res.rel_res!r} flux_rel_diff={res.flux_rel_diff!r} "
             f"converged={res.converged} flux_conserved={res.flux_conserved} "
-            f"wall_s={wall:.3f}")
+            f"wall_s={wall:.3f} "
+            f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
         log(f"main[{label}] step_s " + json.dumps(
             {k: round(v, 4) for k, v in timings.items()}))
         log(f"main[{label}] launches " + json.dumps(counts, sort_keys=True))
+        if at:
+            log(f"main[{label}] k3_launches_by_extent " + json.dumps(
+                {f"{k} {'x'.join(map(str, shp))}": v
+                 for (k, shp), v in sorted(at.items())}))
         log(f"main[{label}] plain_on_cuda " + json.dumps(plain,
                                                           sort_keys=True))
         require(res.converged and res.flux_conserved,
@@ -342,11 +471,14 @@ def phase_main(vol, n):
         require(not missing, f"main[{label}]: never launched: {missing}")
         require(not plain,
                 f"main[{label}]: plain versions ran on CUDA tensors: {plain}")
-        runs[label] = {"iterations": res.iterations, "counts": counts}
+        runs[label] = {"iterations": res.iterations, "counts": counts,
+                       "at": at, "tau": res.value}
         if label == "iso":
             active = res.active
         del res
-    log(f"main peak_mem_GB {torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    rel = abs(runs["sa"]["tau"] - runs["iso"]["tau"]) / abs(runs["iso"]["tau"])
+    log(f"main[sa] tau against main[iso]: rel {rel:.3e}")
+    require(rel <= 1e-6, f"main[sa]: tau differs from main[iso] by {rel:.3e}")
     return runs, active
 
 
@@ -354,30 +486,32 @@ def phase_parity(seed):
     from openimpala_tpu_torch import tortuosity
 
     vol = make_blobs(64, 0.4, seed)
-    gpu = tortuosity(vol, 1, "X", eps=1e-9, device="cuda")
-    cpu = tortuosity(vol, 1, "X", eps=1e-9, device="cpu")
-    rel = abs(gpu.value - cpu.value) / abs(cpu.value)
-    log(f"parity 64^3: tau gpu={gpu.value!r} cpu={cpu.value!r} rel={rel:.3e}"
-        f" active_vf gpu={gpu.active_vf!r} cpu={cpu.active_vf!r} "
-        f"iterations gpu={gpu.iterations} cpu={cpu.iterations}")
-    require(rel <= 1e-6, f"parity: tau rel diff {rel:.3e} > 1e-6")
-    require(gpu.active_vf == cpu.active_vf, "parity: active_vf differs")
-    require(abs(gpu.iterations - cpu.iterations) <= 1,
-            "parity: iterations differ by more than 1")
+    for precond in ("auto", "sa"):
+        gpu = tortuosity(vol, 1, "X", eps=1e-9, precond=precond,
+                         device="cuda")
+        cpu = tortuosity(vol, 1, "X", eps=1e-9, precond=precond,
+                         device="cpu")
+        rel = abs(gpu.value - cpu.value) / abs(cpu.value)
+        log(f"parity 64^3 precond={precond}: tau gpu={gpu.value!r} "
+            f"cpu={cpu.value!r} rel={rel:.3e}"
+            f" active_vf gpu={gpu.active_vf!r} cpu={cpu.active_vf!r} "
+            f"iterations gpu={gpu.iterations} cpu={cpu.iterations}")
+        require(rel <= 1e-6, f"parity[{precond}]: tau rel diff {rel:.3e} "
+                             "> 1e-6")
+        require(gpu.active_vf == cpu.active_vf,
+                f"parity[{precond}]: active_vf differs")
+        require(abs(gpu.iterations - cpu.iterations) <= 1,
+                f"parity[{precond}]: iterations differ by more than 1")
 
 
-def _path_fns(system, levels, x, r):
-    """name -> (kernel call, plain call, shape) for the kernels of one main
-    path, on that path's system and Galerkin levels."""
+def _k1_fns(system, x, r):
+    """name -> (kernel call, plain call, shape) for K1 on one system."""
     from openimpala_tpu_torch.ops import stencil as st
     from openimpala_tpu_torch.ops import stencil_cuda as sc
 
     code, w, per = system.code, system.w, system.periodic
     shape = tuple(code.shape)
     x64 = x.double()
-    # K2 sweep runs on level 1 only; K2 matvec once per V-cycle on level 1
-    # and about coarse_sweeps times on the coarsest level, where it is timed
-    (l1, x1, r1), (lc, xc, _) = levels[0], levels[-1]
     return {
         "k1_matvec_dot_f32": (
             lambda: sc.k1_stencil("matvec", x, None, code, w, per,
@@ -398,6 +532,17 @@ def _path_fns(system, levels, x, r):
         "k1_matvec_f64": (
             lambda: sc.k1_stencil("matvec", x64, None, code, w, per),
             lambda: st.apply_code_plain(x64, code, w, per), shape),
+    }
+
+
+def _k2_fns(levels):
+    """K2 on a path's Galerkin levels, each ``(level, x, r)``: the sweep
+    runs on level 1 only; the matvec once per V-cycle on level 1 and about
+    coarse_sweeps times on the coarsest level, where it is timed."""
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+
+    (l1, x1, r1), (lc, xc, _) = levels[0], levels[-1]
+    return {
         "k2_sweep_f32": (
             lambda: sc.k2_conductance("sweep", x1, r1, l1.cx, l1.cy, l1.cz,
                                       l1.diag, omega=0.9),
@@ -409,16 +554,85 @@ def _path_fns(system, levels, x, r):
     }
 
 
+def _k3_fns(lvl, x, r):
+    """K3 on one smoothed-aggregation level."""
+    from openimpala_tpu_torch.ops import offset as po
+    from openimpala_tpu_torch.ops import offset_cuda as oc
+
+    pk, offs, nn = lvl.packed, lvl.offsets, lvl.nn
+    shape = tuple(lvl.diag.shape)
+    return {
+        "k3_apply_f32": (
+            lambda: oc.k3_offset("apply", x, None, pk, offs),
+            lambda: po.offset_apply_plain(x, pk, offs), shape),
+        "k3_apply_prefix_f32": (
+            lambda: oc.k3_offset("apply", x, None, pk, offs, n_taps=nn),
+            lambda: po.offset_apply_plain(x, pk, offs, n_taps=nn), shape),
+        "k3_resid_f32": (
+            lambda: oc.k3_offset("resid", x, r, pk, offs),
+            lambda: po.offset_resid_plain(x, r, pk, offs), shape),
+        "k3_sweep_f32": (
+            lambda: oc.k3_offset("sweep", x, r, pk, offs, omega=0.9),
+            lambda: po.offset_sweep_plain(x, r, pk, offs, 0.9), shape),
+    }
+
+
+def _k3_levels(chk, mg, gen, run, fns, cost):
+    """K3 on every level of the ``sa`` path's hierarchy: each mode the run
+    launched at that level's extent is held against its plain form on the
+    level's own packed coefficients and timed there.  Adds level 1's calls
+    to ``fns`` and its per-cell cost to ``cost`` (the headline: level 1
+    holds 7/8 of the coarse cells); returns name -> one record per level
+    with the run's launches at that extent."""
+    at = run["at"]
+    shapes = {tuple(l.diag.shape) for l in mg.levels}  # each half the last
+    stray = sorted(k for k in at if k[1] not in shapes)
+    require(not stray, f"main[sa]: K3 ran at extents of no level: {stray}")
+    per_level = {name: [] for name in _K3}
+    for li, lvl in enumerate(mg.levels):
+        pk, shape = lvl.packed, tuple(lvl.diag.shape)
+        csize, cells = pk.element_size(), float(np.prod(shape))
+        dims = "x".join(map(str, shape))
+        log(f"times [sa] level {li + 1}: {dims} taps {len(lvl.offsets)} "
+            f"nn {lvl.nn} {pk.dtype} {pk.numel() * csize / 1e6:.1f} MB")
+        x, r = check_k3(chk, lvl, gen, f"main[sa] level {li + 1} {dims} "
+                        f"{len(lvl.offsets)} taps nn {lvl.nn}",
+                        (torch.float32,))
+        lfns = _k3_fns(lvl, x, r)
+        for name in _K3:
+            taps = lvl.nn if "prefix" in name else len(lvl.offsets)
+            bpc, fpc = k3_cost(name, taps, csize, 4)
+            if li == 0:
+                fns[name], cost[name] = lfns[name], (bpc, fpc)
+            n = at.get((name, shape), 0)
+            if n == 0:
+                continue
+            kfn, pfn, _ = lfns[name]
+            rec = {"level": li + 1, "shape": list(shape), "taps": taps,
+                   "launches": n, "ms": graph_ms(kfn),
+                   "plain_ms": cuda_ms(pfn, 3, warmup=1),
+                   "bound_ms": bpc * cells / PEAK_BYTES_S * 1e3}
+            per_level[name].append(rec)
+            log(f"times {name} [sa] level {li + 1} {dims} {taps} taps: "
+                f"{rec['ms']:.4f} ms graph, plain {rec['plain_ms']:.3f} ms, "
+                f"bound {rec['bound_ms']:.4f} ms, launches {n}")
+    for name, recs in per_level.items():
+        total = sum(v["launches"] for v in recs)
+        require(total == run["counts"].get(name, 0),
+                f"main[sa]: {name} launched {run['counts'].get(name, 0)} "
+                f"times, {total} of them on a level")
+    return per_level
+
+
 def phase_times(chk, active_np, seed, runs):
     """For each main path, hold its kernels against their plain versions on
-    that path's own system and Galerkin levels, then time them: the kernel
+    that path's own system and coarse levels, then time them: the kernel
     from a CUDA graph (``ms``) and back to back from the host
     (``ms_eager``), the plain version with CUDA events."""
     from openimpala_tpu_torch.ops import stencil as st
     from openimpala_tpu_torch.ops import stencil_cuda as sc
     from openimpala_tpu_torch.ops.stencil import make_tortuosity_system
-    from openimpala_tpu_torch.solve.preconditioners import (
-        GalerkinMGPreconditioner)
+    from openimpala_tpu_torch.solve.refine import make_precond
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -432,10 +646,15 @@ def phase_times(chk, active_np, seed, runs):
     log(f"times: device copy {copy_gbs:.1f} GB/s (read+write)")
 
     by_path = {name: {} for name in PATH_KERNELS}
-    for label, (dx, expect) in PATHS.items():
+    for label, (dx, precond, expect) in PATHS.items():
         system = make_tortuosity_system(active, 0, -1.0, 1.0, dx=dx,
                                         dtype=torch.float32)
-        mg = GalerkinMGPreconditioner.from_system(system)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mg = make_precond(system, precond)
+        torch.cuda.synchronize()
+        log(f"times [{label}]: hierarchy rebuilt in "
+            f"{time.perf_counter() - t0:.3f} s")
         code, w, per = system.code, system.w, system.periodic
         case = f"main[{label}] system " + "x".join(map(str, code.shape))
         modes = [m for m in ("matvec_dot", "matvec", "resid", "sweep",
@@ -446,12 +665,18 @@ def phase_times(chk, active_np, seed, runs):
                   sc.k1_stencil("matvec", x64, None, code, w, per),
                   st.apply_code_plain(x64, code, w, per), torch.float64, case)
         del x64
-        levels = [(lvl,) + check_k2(chk, lvl, gen,
-                                    f"main[{label}] level {li + 1} " +
-                                    "x".join(map(str, lvl.diag.shape)))
-                  for li, lvl in enumerate(mg.levels)]
+        fns = _k1_fns(system, x, r)
+        cost = {}  # name -> (bytes, flops) per cell, where the run sets them
+        if precond == "sa":
+            k3_levels = _k3_levels(chk, mg, gen, runs[label], fns, cost)
+        else:
+            levels = [(lvl,) + check_k2(chk, lvl, gen,
+                                        f"main[{label}] level {li + 1} " +
+                                        "x".join(map(str, lvl.diag.shape)))
+                      for li, lvl in enumerate(mg.levels)]
+            fns.update(_k2_fns(levels))
+            del levels
         it = runs[label]["iterations"]
-        fns = _path_fns(system, levels, x, r)
         for name in expect:
             kfn, pfn, kshape = fns[name]
             n = runs[label]["counts"].get(name, 0)
@@ -459,11 +684,23 @@ def phase_times(chk, active_np, seed, runs):
                  "shape": list(kshape), "ms": graph_ms(kfn),
                  "ms_eager": cuda_ms(kfn, 20),
                  "plain_ms": cuda_ms(pfn, 3, warmup=1)}
+            if name in cost:
+                t["bytes_per_cell"], t["flops_per_cell"] = cost[name]
+                lv = k3_levels[name]
+                t["levels"] = lv
+                t["ms_all_launches"] = sum(v["ms"] * v["launches"]
+                                           for v in lv)
+                t["bound_ms_all_launches"] = sum(
+                    v["bound_ms"] * v["launches"] for v in lv)
             by_path[name][label] = t
             log(f"times {name} [{label}] {kshape}: {t['ms']:.4f} ms graph, "
                 f"{t['ms_eager']:.4f} ms eager, plain {t['plain_ms']:.3f} ms;"
                 f" launches {n} ({t['launches_per_pcg_iter']:.2f}/iter)")
-        del system, mg, levels, fns, x, r
+            if "levels" in t:
+                log(f"times {name} [{label}] all {n} launches, each at its "
+                    f"level's time: {t['ms_all_launches']:.1f} ms, bound "
+                    f"{t['bound_ms_all_launches']:.1f} ms")
+        del system, mg, fns, x, r
         torch.cuda.empty_cache()
 
     kernels = []
@@ -472,6 +709,8 @@ def phase_times(chk, active_np, seed, runs):
         # the headline numbers come from the path that launches it most
         main_label = max(paths, key=lambda p: paths[p]["launches"])
         t = paths[main_label]
+        if bpc is None:  # K3: set by the taps of the level this run built
+            bpc, fpc = t["bytes_per_cell"], t["flops_per_cell"]
         cells = float(np.prod(t["shape"]))
         bytes_ms = bpc * cells / PEAK_BYTES_S * 1e3
         ops_ms = fpc * cells / PEAK_FLOPS_S[dtype] * 1e3

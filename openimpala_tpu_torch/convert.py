@@ -1,6 +1,6 @@
 """Carry solver state across from the JAX package: build the port's
-objects from the leaves of a JAX ``StencilSystem`` or Galerkin level, given
-as numpy arrays.  Used by the parity tests to run both solvers on the very
+objects from the leaves of a JAX ``StencilSystem``, Galerkin level or
+smoothed-aggregation preconditioner, given as numpy arrays.  Used by the parity tests to run both solvers on the very
 same system."""
 
 from __future__ import annotations
@@ -9,7 +9,8 @@ import numpy as np
 import torch
 
 from .ops.stencil import StencilSystem
-from .solve.preconditioners import ConductanceLevel
+from .solve.preconditioners import ConductanceLevel, MGLevel
+from .solve.sa import OffsetLevel, SAMGPreconditioner
 from .utils.common import resolve_device
 
 
@@ -42,3 +43,31 @@ def conductance_level_from_numpy(diag, cx, cy, cz,
     dev = resolve_device(device)
     return ConductanceLevel(diag=_tensor(diag, dev), cx=_tensor(cx, dev),
                             cy=_tensor(cy, dev), cz=_tensor(cz, dev))
+
+
+def offset_level_from_numpy(packed, offsets, nn, device=None) -> OffsetLevel:
+    """One smoothed-aggregation level of the port from a JAX OffsetLevel's
+    packed (X, T, Y, Z) coefficients and its static fields."""
+    dev = resolve_device(device)
+    return OffsetLevel(
+        packed=_tensor(packed, dev).contiguous(),
+        offsets=tuple(tuple(int(c) for c in o) for o in offsets),
+        nn=int(nn))
+
+
+def sa_preconditioner_from_numpy(code, w, periodic, dinv0, levels,
+                                 device=None, **static) -> SAMGPreconditioner:
+    """The port's SAMGPreconditioner from a JAX one's leaves: the fine
+    level's ``code``, ``w``, ``periodic``, the ``dinv0`` array, ``levels`` as
+    ``(packed, offsets, nn)`` triples, and the static fields (``nu1``,
+    ``nu2``, ``omega``, ``coarse_sweeps``, ``sa_depth``, ``om_sa``,
+    ``cycle``, ``w_depth``) by keyword."""
+    dev = resolve_device(device)
+    fine = MGLevel(code=_tensor(code, dev),
+                   w=tuple(float(v) for v in w),
+                   periodic=tuple(bool(p) for p in periodic))
+    return SAMGPreconditioner(
+        fine=fine, dinv0=_tensor(dinv0, dev),
+        levels=tuple(offset_level_from_numpy(*lvl, device=dev)
+                     for lvl in levels),
+        **static)

@@ -1,4 +1,6 @@
-"""The hand-written CUDA kernels of the stencil path: build, load, launch.
+"""The hand-written CUDA kernels of the stencil path: build, load, launch
+(K1 and K2 here; K3's launcher is ``ops/offset_cuda.py``, on this module's
+build, loader, checks and counters).
 
 K1 (``csrc/k1_stencil.cu``) replaces
 ``openimpala_tpu/ops/stencil_pallas.py::fused_stencil_pallas`` (body
@@ -35,8 +37,11 @@ carries a hash of the sources and flags, with the compiler's output
 are loaded with ctypes.  Nothing is compiled or loaded at import time.
 
 Counters: every launch adds one to ``launches[name]``
-(``k1_<mode>[_dot]_<f32|f64>``, ``k2_<mode>_<f32|f64>``), and every call of
+(``k1_<mode>[_dot]_<f32|f64>``, ``k2_<mode>_<f32|f64>``,
+``k3_<mode>_<f32|f64>``, ``k3_apply_prefix_<f32|f64>``), and every call of
 a plain form with a CUDA tensor adds one to ``plain_on_cuda[name]``.
+K3 runs on every level of a hierarchy, so its launcher also adds one to
+``launches_at[(name, (X, Y, Z))]``: the same launches, split by extent.
 """
 
 from __future__ import annotations
@@ -54,7 +59,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"k1": "k1_stencil.cu", "k2": "k2_conductance.cu"}
+SOURCES = {"k1": "k1_stencil.cu", "k2": "k2_conductance.cu",
+           "k3": "k3_offset.cu"}
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -65,6 +71,7 @@ _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _GRID_YZ_MAX = 65535  # CUDA's limit on gridDim.y and gridDim.z
 
 launches: collections.Counter = collections.Counter()
+launches_at: collections.Counter = collections.Counter()  # (name, shape)
 plain_on_cuda: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
@@ -73,6 +80,7 @@ _libs: dict = {}
 
 def reset_counts():
     launches.clear()
+    launches_at.clear()
     plain_on_cuda.clear()
 
 
@@ -154,10 +162,14 @@ def _load(name: str):
                 fn.restype = i
             lib.k1_num_partials.argtypes = [ll, ll, ll]
             lib.k1_num_partials.restype = ll
-        else:
+        elif name == "k2":
             for fn in (lib.k2_launch_f32, lib.k2_launch_f64):
                 fn.argtypes = [i, p, p, p, p, p, p, p, ll, ll, ll, d, p]
                 fn.restype = i
+        else:
+            lib.k3_launch.argtypes = [i, i, i, p, p, p, p, ll, ll, ll, i, i,
+                                      i, ctypes.c_char_p, d, p]
+            lib.k3_launch.restype = i
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [i]
         err.restype = ctypes.c_char_p

@@ -5,9 +5,10 @@
 1. optional remspot filter (``TortuosityHypre.cpp:248-292``);
 2. percolation mask from inlet/outlet faces on the host (``:394-558``);
    active VF = n_active / n_total;
-3. free-set system with the packed bf16 geometry, float32 PCG with the
-   Galerkin multigrid V-cycle inside float64 iterative refinement (the
-   stencil kernels K1 and K2 on the card);
+3. free-set system with the packed bf16 geometry, float32 PCG inside
+   float64 iterative refinement, preconditioned by the Galerkin multigrid
+   V-cycle (the stencil kernels K1 and K2 on the card) or, with
+   ``precond="sa"``, by the smoothed-aggregation cycle (K1 and K3);
 4. boundary fluxes, the conservation gate rel_diff <= 1e-6 (``:794-823``),
    and tau = active_vf / Deff with the reference's NaN/Inf policy
    (``:831-877``).

@@ -21,6 +21,7 @@ import torch
 from ..utils.profiling import phase_timer
 from .cg import SolveResult, cg
 from .preconditioners import GalerkinMGPreconditioner, JacobiPreconditioner
+from .sa import SAMGPreconditioner
 
 
 def _krylov(method: str, system, r0, denom, eps, maxiter, precond,
@@ -61,8 +62,8 @@ def _accumulate(z_total, scale, z):
 
 
 def make_precond(sys_, precond, opts=None):
-    """``"auto"`` (= ``"gmg"``), ``"gmg"``, ``"jacobi"`` or ``"none"``;
-    any other name raises."""
+    """``"auto"`` (= ``"gmg"``), ``"gmg"``, ``"sa"`` (= ``"samg"``),
+    ``"jacobi"`` or ``"none"``; any other name raises."""
     opts = opts or {}
     if precond == "auto":
         precond = "gmg"
@@ -72,7 +73,9 @@ def make_precond(sys_, precond, opts=None):
         return JacobiPreconditioner.from_system(sys_)
     if precond == "gmg":
         return GalerkinMGPreconditioner.from_system(sys_, **opts)
-    if precond in ("cheby", "chebyshev", "mg", "sa", "samg"):
+    if precond in ("sa", "samg"):
+        return SAMGPreconditioner.from_system(sys_, **opts)
+    if precond in ("cheby", "chebyshev", "mg"):
         raise NotImplementedError(
             f"preconditioner {precond!r} is not ported yet")
     raise ValueError(f"unknown preconditioner: {precond!r}")

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where the time of the port's flow-through solve goes on one NVIDIA GPU.
 
-    python3 -m scripts.profile_torch_solve [--n 512]    # from the repo root
+    python3 -m scripts.profile_torch_solve [--n 512] [--precond sa]
+        [--precond-opts '{"cycle": "w", "coeff_dtype": "bfloat16"}']
+
+(from the repo root)
 
 Runs ``openimpala_tpu_torch.tortuosity`` once to build the kernels and warm
 the allocator, then once more under ``torch.profiler`` (CPU + CUDA
 activities), and prints: the per-step wall seconds, the device busy time
 (sum of kernel and copy durations, one stream) against the wall time of
 the call and of its solve step, the device time of the hand-written
-kernels (K1, K2) against PyTorch's own kernels, and the top kernels by
+kernels (K1, K2, K3) against PyTorch's own kernels, and the top kernels by
 device time.  The last line is one JSON object with those numbers.
 """
 
@@ -26,7 +29,8 @@ from torch.profiler import ProfilerActivity, profile
 from openimpala_tpu_torch import tortuosity
 from openimpala_tpu_torch.utils.sample_data import make_blobs
 
-HAND = ("k1_planes", "k1_restrict", "k2_cells", "reduce_partials")
+HAND = ("k1_planes", "k1_restrict", "k2_cells", "k3_cells",
+        "reduce_partials")
 
 
 def _device_us(evt) -> float:
@@ -40,7 +44,16 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=512,
                     help="edge of the blobs volume (porosity 0.4, seed 0)")
+    ap.add_argument("--precond", default="auto",
+                    help="preconditioner: auto (Galerkin V-cycle) or sa")
+    ap.add_argument("--precond-opts", default="{}",
+                    help="JSON options of the preconditioner; a "
+                         "coeff_dtype is named as a torch dtype")
     args = ap.parse_args(argv)
+    opts = json.loads(args.precond_opts)
+    if isinstance(opts.get("coeff_dtype"), str):
+        opts["coeff_dtype"] = getattr(torch, opts["coeff_dtype"])
+    solve = dict(precond=args.precond, precond_opts=opts, device="cuda")
     if not torch.cuda.is_available():
         print("profile_torch_solve: no CUDA device", file=sys.stderr)
         return 2
@@ -50,16 +63,17 @@ def main(argv=None):
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     vol = make_blobs(args.n, 0.4, 0)
-    tortuosity(vol, 1, "X", device="cuda")  # build kernels, warm up
+    tortuosity(vol, 1, "X", **solve)  # build kernels, warm up
 
     timings = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         t0 = time.perf_counter()
-        res = tortuosity(vol, 1, "X", device="cuda", timings=timings)
+        res = tortuosity(vol, 1, "X", timings=timings, **solve)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(f"tau={res.value!r} iterations={res.iterations} wall_s={wall:.3f} "
+    print(f"precond={args.precond} opts={args.precond_opts} "
+          f"tau={res.value!r} iterations={res.iterations} wall_s={wall:.3f} "
           "(under the profiler)")
     print("step_s " + json.dumps({k: round(v, 4) for k, v in timings.items()}))
 
@@ -84,7 +98,8 @@ def main(argv=None):
         print(f"  {us / 1e3:9.2f} ms  {count:7d}  {us / count:9.2f} us  "
               f"{key[:100]}")
     print(json.dumps({
-        "card": card, "n": args.n, "iterations": res.iterations,
+        "card": card, "n": args.n, "precond": args.precond,
+        "precond_opts": args.precond_opts, "iterations": res.iterations,
         "wall_s": wall, "steps_s": timings, "device_busy_ms": busy_ms,
         "hand_kernels_ms": hand_ms, "torch_kernels_ms": busy_ms - hand_ms,
         "top": [{"name": k[:100], "launches": c, "ms": u / 1e3}

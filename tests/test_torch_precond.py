@@ -137,7 +137,7 @@ def test_unported_options_raise():
     for opts in ({"transfer": "tri"}, {"cycle": "w"}, {"smoother": "cheby"}):
         with pytest.raises(NotImplementedError):
             PP.GalerkinMGPreconditioner.from_system(ps, **opts)
-    for name in ("cheby", "mg", "sa"):
+    for name in ("cheby", "mg"):
         with pytest.raises(NotImplementedError):
             make_precond(ps, name)
     with pytest.raises(ValueError):
