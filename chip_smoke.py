@@ -17,28 +17,50 @@ Phases (each failure exits non-zero and prints no result line):
                precision and bfloat16 coefficients, on synthetic 33- and
                125-tap levels (odd extents, and extents below the taps'
                reach) and on the levels that ``SAMGPreconditioner`` builds
-               for a clamped and a periodic system;
-3. main      - three main paths, each driven on its own: ``tortuosity`` on
+               for a clamped and a periodic system.  K4 (the explicit
+               (diag, free) matvec, with and without the fused dot) on
+               clamped, periodic and mixed axes, odd extents and extents 1
+               and 2, a scalar, a per-lane and a full diag, float32 and
+               float64, batches of 1, 3 and 64 lanes; the dots must repeat
+               bit for bit; K5 (the streaming form) on the same unbatched
+               cases, against the plain form and against K4;
+3. main      - six main paths, each driven on its own: ``tortuosity`` on
                a 512^3 blobs volume (porosity 0.4, seed 0, direction X, eps
                1e-9) with the default preconditioner and dx = (1, 1, 1),
                which coarsens through K1 restrict; with dx = (1, 1, 2),
                which semi-coarsens and runs K1 resid; and with
                ``precond="sa"``, the smoothed-aggregation cycle, K1 on the
-               fine level and K3 on every coarse level.  The launch counters
-               are zeroed just before each call and read just after; each
-               path must launch its kernels (K1 matvec+dot at least once per
-               PCG iteration) while no plain version sees a CUDA tensor, and
-               the ``sa`` path's tau must agree with the default path's to
-               1e-6;
-4. parity    - the same call at 64^3 on the GPU and on the CPU, with the
-               default and with the ``sa`` preconditioner;
+               fine level and K3 on every coarse level; and with
+               ``precond="cheby"``, the Chebyshev polynomial on the explicit
+               operator, kernel K5 (on a 256^3 volume of the same recipe,
+               beside a default-path call there: at 512^3 it needs 951
+               iterations and 37 s).  Then ``effective_diffusivity`` on the
+               same 512^3 volume (three periodic cell problems: K1 and K2 on
+               wrapped axes), and ``rev_study`` with 64 crops of 64^3 (one
+               batched group, three directions: K4 over 64 lanes, with the
+               fused dot in the PCG and without it in the polynomial and the
+               float64 outer residual); one crop's tensor must agree with
+               ``effective_diffusivity`` on that crop to 1e-6.  The launch
+               counters are zeroed just before each call and read just
+               after; each path must launch its kernels (the matvec+dot at
+               least once per PCG iteration) while no plain version sees a
+               CUDA tensor, and the ``sa`` and ``cheby`` paths' tau must
+               agree with the default path's to 1e-6;
+4. parity    - the same call at 64^3 on the GPU and on the CPU:
+               ``tortuosity`` with the default and with the ``sa``
+               preconditioner, and ``effective_diffusivity``;
 5. times     - for each path, its kernels against their plain versions on
                that path's own 512^3 system and coarse levels (K3 on every
                level of the ``sa`` path's hierarchy, each with the launches
                the run made at that extent): max error, the kernel's time
                from a CUDA graph (``ms``) and back to back from the host
                (``ms_eager``), the plain version's time, the
-               compulsory-bytes bound and launches per PCG iteration.
+               compulsory-bytes bound and launches per PCG iteration.  K5
+               is timed on the ``cheby`` path's own (diag, free) with K4
+               (full diag, scalar diag, with the dot) beside it on the same
+               input, and the two again side by side at 512^3 on the
+               default path's system; K4 on the ``rev`` path's 64 x 64^3
+               batch.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Volumes are made with
@@ -84,9 +106,14 @@ K1_TPU = "openimpala_tpu/ops/stencil_pallas.py:815"
 K2_TPU = "openimpala_tpu/ops/stencil_pallas.py:757"
 K3_SRC = "openimpala_tpu_torch/csrc/k3_offset.cu"
 K3_TPU = "openimpala_tpu/ops/offset_pallas.py:170"
+K4_SRC = "openimpala_tpu_torch/csrc/k4_matvec.cu"
+K4_TPU = "openimpala_tpu/ops/stencil_pallas.py:124"
+K5_SRC = "openimpala_tpu_torch/csrc/k5_matvec_stream.cu"
+K5_TPU = "openimpala_tpu/ops/stencil_pallas.py:297"
 
 # compulsory bytes and flops per (fine) cell of each kernel on the main
-# paths; K3's depend on the taps of the level the run built (k3_cost)
+# paths; K3's depend on the taps of the level the run built (k3_cost); K4
+# and K5 read a full-array diag on their paths (x, diag, free, out)
 PATH_KERNELS = {
     # name: (source, replaces, bytes/cell, flops/cell, dtype)
     "k1_matvec_dot_f32": (K1_SRC, K1_TPU, 10.0, 12, torch.float32),
@@ -101,22 +128,50 @@ PATH_KERNELS = {
     "k3_apply_prefix_f32": (K3_SRC, K3_TPU, None, None, torch.float32),
     "k3_resid_f32": (K3_SRC, K3_TPU, None, None, torch.float32),
     "k3_sweep_f32": (K3_SRC, K3_TPU, None, None, torch.float32),
+    "k4_matvec_dot_f32": (K4_SRC, K4_TPU, 13.0, 12, torch.float32),
+    "k4_matvec_f32": (K4_SRC, K4_TPU, 13.0, 10, torch.float32),
+    "k4_matvec_f64": (K4_SRC, K4_TPU, 25.0, 10, torch.float64),
+    "k5_matvec_f32": (K5_SRC, K5_TPU, 13.0, 10, torch.float32),
 }
 _K1 = ("k1_matvec_dot_f32", "k1_matvec_f32", "k1_sweep_f32", "k1_matvec_f64")
 _K2 = ("k2_matvec_f32", "k2_sweep_f32")
 _K3 = ("k3_apply_f32", "k3_apply_prefix_f32", "k3_resid_f32", "k3_sweep_f32")
-# the main paths, each driven and counted on its own: label -> (dx, precond,
-# the kernels it must launch).  Isotropic spacing coarsens 2x2x2 through K1
-# restrict; dx = (1, 1, 2) semi-coarsens, so its fine level runs K1 resid;
-# "sa" runs K1 resid and two more matvecs per cycle on the fine level (the
-# smoothed transfers) and K3 on every coarse level: the full apply while
-# probing, the prefix apply in the transfers of level 1.
+_K4 = ("k4_matvec_dot_f32", "k4_matvec_f32", "k4_matvec_f64")
+# the main paths, each driven and counted on its own: label -> (entry
+# point, dx, precond, the kernels it must launch).  "tau" is ``tortuosity``:
+# isotropic spacing coarsens 2x2x2 through K1 restrict; dx = (1, 1, 2)
+# semi-coarsens, so its fine level runs K1 resid; "sa" runs K1 resid and two
+# more matvecs per cycle on the fine level (the smoothed transfers) and K3
+# on every coarse level: the full apply while probing, the prefix apply in
+# the transfers of level 1; "cheby" applies the polynomial through K5 and
+# keeps K1 for the PCG's own matvec and the residuals.  "deff" is
+# ``effective_diffusivity``: the default cycle on three periodic systems.
+# "rev" is ``rev_study``: the batched solver, K4 over the lanes.
 PATHS = {
-    "iso": ((1.0, 1.0, 1.0), "auto", _K1 + _K2 + ("k1_restrict_f32",)),
-    "aniso": ((1.0, 1.0, 2.0), "auto", _K1 + _K2 + ("k1_resid_f32",)),
-    "sa": ((1.0, 1.0, 1.0), "sa", _K1 + _K3 + ("k1_resid_f32",)),
+    "iso": ("tau", (1.0, 1.0, 1.0), "auto", _K1 + _K2 + ("k1_restrict_f32",)),
+    "aniso": ("tau", (1.0, 1.0, 2.0), "auto", _K1 + _K2 + ("k1_resid_f32",)),
+    "sa": ("tau", (1.0, 1.0, 1.0), "sa", _K1 + _K3 + ("k1_resid_f32",)),
+    "cheby": ("tau", (1.0, 1.0, 1.0), "cheby",
+              ("k1_matvec_dot_f32", "k1_matvec_f32", "k1_matvec_f64",
+               "k5_matvec_f32")),
+    "deff": ("deff", (1.0, 1.0, 1.0), "auto",
+             _K1 + _K2 + ("k1_restrict_f32",)),
+    "rev": ("rev", (1.0, 1.0, 1.0), None, _K4),
 }
-assert {k for _, _, ks in PATHS.values() for k in ks} == set(PATH_KERNELS)
+assert {k for *_, ks in PATHS.values() for k in ks} == set(PATH_KERNELS)
+
+# the REV path: the JAX package's own batched configuration, 64 crops of
+# 64^3 in one group, three directions
+REV_SIZE, REV_SAMPLES = 64, 64
+CHEBY_DEGREE_BATCHED = 12  # cheby_degree default of batched_cell_problems
+CHEBY_DEGREE = 8  # degree default of ChebyshevPreconditioner
+# edge of the volume the "cheby" path runs on, with a default-path call
+# beside it at the same edge.  At 512^3 this opt-in preconditioner needs 951
+# PCG iterations and 36.8 s of inner rounds on an H100 (700 W), at 256^3
+# 494 and 2.6 s (scripts/profile_torch_solve.py --precond cheby [--n 256]),
+# so the path runs at 256^3; K5 and K4 are still timed side by side at the
+# full 512^3 on the default path's system.
+CHEBY_N = 256
 
 
 class SmokeFailure(RuntimeError):
@@ -194,8 +249,11 @@ class Checker:
         self.max_err: dict = {}
         self.cases: dict = {}
 
-    def close(self, name, got, want, dtype, case, tol=TOL):
+    def close(self, name, got, want, dtype, case, tol=TOL, scale=1.0):
+        """``scale``: the size of the terms the output sums, where that is
+        not O(1); the absolute tolerance is taken in its units."""
         rtol, atol = tol[dtype]
+        atol *= scale
         require(got.shape == want.shape,
                 f"{name} [{case}]: shape {tuple(got.shape)} != "
                 f"{tuple(want.shape)}")
@@ -207,12 +265,18 @@ class Checker:
                     f"rtol={rtol} atol={atol}")
 
     def dot(self, name, got, want, dtype, case):
-        g, w = float(got), float(want)
-        rel = abs(g - w) / max(abs(w), 1e-300)
+        """The fused dot (0-d, or one per lane) against the plain sum: the
+        largest relative difference."""
+        require(got.shape == want.shape,
+                f"{name} [{case}]: dot shape {tuple(got.shape)} != "
+                f"{tuple(want.shape)}")
+        g, w = got.double(), want.double()
+        rel = float(((g - w).abs() / w.abs().clamp_min(1e-300)).max())
         self.max_err[name + ".dot_rel"] = max(
             self.max_err.get(name + ".dot_rel", 0.0), rel)
         require(rel <= DOT_RTOL[dtype],
-                f"{name} [{case}]: dot {g!r} vs plain {w!r} (rel {rel:.3e})")
+                f"{name} [{case}]: dot {g.flatten()[:4].tolist()!r} vs plain "
+                f"{w.flatten()[:4].tolist()!r} (rel {rel:.3e})")
 
 
 def _tag(dtype):
@@ -275,10 +339,16 @@ def check_k2(chk, level, gen, case):
     x = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
     r = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
     tag = _tag(dtype)
+    # A Galerkin level's coefficients grow fourfold per level (a periodic
+    # 512^3 system's level 2 holds diagonals of several hundred), so the
+    # matvec sums terms that large and cancels them; kernel and plain form
+    # round them in another order.  The absolute tolerance is 1e-5 (1e-12)
+    # of the level's largest diagonal entry.
+    scale = max(1.0, float(level.diag.max()))
     chk.close(f"k2_matvec_{tag}",
               sc.k2_conductance("matvec", x, None, level.cx, level.cy,
                                 level.cz, level.diag),
-              level.apply_plain(x), dtype, case)
+              level.apply_plain(x), dtype, case, scale=scale)
     chk.close(f"k2_sweep_{tag}",
               sc.k2_conductance("sweep", x, r, level.cx, level.cy, level.cz,
                                 level.diag, omega=0.9),
@@ -343,6 +413,63 @@ def _bf16(lvl):
     return dataclasses.replace(lvl, packed=lvl.packed.to(torch.bfloat16))
 
 
+def check_restricted(chk, x, diag, free, w, per, case):
+    """K4 (without and with the fused dot) on one input against the plain
+    form; the dot must repeat bit for bit.  Where K5 can take the input (one
+    volume, full diag) it is held against the plain form and against K4."""
+    from openimpala_tpu_torch.ops import stencil as st
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+
+    dtype, tag = x.dtype, _tag(x.dtype)
+    want, wdot = st.apply_restricted_with_dot_plain(x, diag, free, w, per)
+    out = sc.k4_matvec(x, diag, free, w, per)
+    chk.close(f"k4_matvec_{tag}", out, want, dtype, case)
+    out_d, dot = sc.k4_matvec(x, diag, free, w, per, with_dot=True)
+    out_d2, dot2 = sc.k4_matvec(x, diag, free, w, per, with_dot=True)
+    require(torch.equal(out_d, out_d2) and torch.equal(dot, dot2),
+            f"k4_matvec_dot_{tag} [{case}]: two runs differ")
+    chk.close(f"k4_matvec_dot_{tag}", out_d, want, dtype, case)
+    chk.dot(f"k4_matvec_dot_{tag}", dot, wdot, dtype, case)
+    if st.restricted_kernel(x, diag, False) == "k5":
+        k5 = sc.k5_matvec_stream(x, diag, free, w, per)
+        chk.close(f"k5_matvec_{tag}", k5, want, dtype, case)
+        chk.close(f"k5_against_k4_{tag}", k5, out, dtype, case)
+
+
+def phase_kernels_restricted(chk, gen, dev):
+    """K4 and K5 on synthetic inputs: every combination of boundary, extent,
+    diag form, dtype and batch listed in the module docstring.  The diag
+    stays above 2 * sum(w), so <x, Ax> is a sum of positive terms and its
+    relative error means something."""
+    pers = {"clamped": (False, False, False), "periodic": (True, True, True),
+            "mixed": (True, False, True)}
+    shapes = ((33, 20, 17), (16, 24, 40), (1, 2, 3), (2, 1, 1), (5, 1, 2))
+    for w in ((1.0, 1.0, 1.0), (1.0, 4.0, 0.25)):
+        base = 2.0 * sum(w) + 0.5
+        for (pname, per), shape, dtype, lanes in (
+                (pp, sh, dt, ln) for pp in pers.items() for sh in shapes
+                for dt in (torch.float32, torch.float64)
+                for ln in (0, 1, 3, 64)):
+            if lanes == 64 and shape[0] > 16:
+                continue  # the 64-lane batch on the smaller extents only
+            full = ((lanes,) if lanes else ()) + shape
+            x = torch.randn(full, generator=gen, dtype=dtype, device=dev)
+            free = torch.rand(full, generator=gen, device=dev) < 0.7
+            diags = {"scalar": torch.full((), base, dtype=dtype, device=dev),
+                     "full": base + torch.rand(full, generator=gen,
+                                               dtype=dtype, device=dev)}
+            if lanes:
+                diags["lane"] = base + torch.rand(
+                    (lanes,), generator=gen, dtype=dtype, device=dev)
+            for form, diag in diags.items():
+                # the mask as bool and as int8, by turns
+                mask = free if form != "full" else free.to(torch.int8)
+                check_restricted(
+                    chk, x, diag, mask, w, per,
+                    f"{pname} {'x'.join(map(str, shape))} lanes {lanes} "
+                    f"diag {form} w {w}")
+
+
 def phase_card():
     from openimpala_tpu_torch.ops import stencil_cuda as sc
 
@@ -401,6 +528,7 @@ def phase_kernels(chk, seed):
             y = sa(torch.where(system.free, torch.randn(
                 shape, generator=gen, dtype=dtype, device=dev), 0.0))
             require(bool(torch.isfinite(y).all()), f"{case}: cycle not finite")
+    phase_kernels_restricted(chk, gen, dev)
     cases = [
         ("odd 100x98x97 iso clamped", (100, 98, 97), "flow", (1, 1, 1)),
         ("even 64x48x40 iso clamped", (64, 48, 40), "flow", (1, 1, 1)),
@@ -416,7 +544,10 @@ def phase_kernels(chk, seed):
                                                 dtype=dtype)
             else:
                 system = make_cell_problem_system(mask, 1, dx=dx, dtype=dtype)
-            check_k1(chk, system, gen, dtype, case)
+            x, _ = check_k1(chk, system, gen, dtype, case)
+            # K4 and K5 on the system's own decoded (diag, free)
+            check_restricted(chk, x, system.diag.contiguous(), system.free,
+                             system.w, system.periodic, case)
             check_k2(chk, fine_conductances(system), gen, case + " fine")
             mg = GalerkinMGPreconditioner.from_system(system)
             for li, lvl in enumerate(mg.levels):
@@ -426,66 +557,252 @@ def phase_kernels(chk, seed):
     log("kernel_checks " + json.dumps(summary))
 
 
-def phase_main(vol, n):
-    """Drive each main path on its own: the counts are zeroed just before
-    its ``tortuosity`` call and read just after."""
+def _log_counts(label, counts, at, plain):
+    log(f"main[{label}] launches " + json.dumps(counts, sort_keys=True))
+    if at:
+        log(f"main[{label}] k3_launches_by_extent " + json.dumps(
+            {f"{k} {'x'.join(map(str, shp))}": v
+             for (k, shp), v in sorted(at.items())}))
+    log(f"main[{label}] plain_on_cuda " + json.dumps(plain, sort_keys=True))
+
+
+def _drive_tau(label, vol, n, dx, precond):
+    """One ``tortuosity`` call, counted on its own."""
     from openimpala_tpu_torch import tortuosity
     from openimpala_tpu_torch.ops import stencil_cuda as sc
 
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    sc.reset_counts()
+    t0 = time.perf_counter()
+    res = tortuosity(vol, 1, "X", eps=1e-9, dx=dx, precond=precond,
+                     device="cuda", timings=timings, return_fields=True)
+    wall = time.perf_counter() - t0
+    counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
+    at = dict(sc.launches_at)  # (name, extent) -> K3 launches
+    log(f"main[{label}] {n}^3 dx={dx} precond={precond}: "
+        f"tau={res.value!r} "
+        f"active_vf={res.active_vf!r} iterations={res.iterations} "
+        f"rel_res={res.rel_res!r} flux_rel_diff={res.flux_rel_diff!r} "
+        f"converged={res.converged} flux_conserved={res.flux_conserved} "
+        f"wall_s={wall:.3f} "
+        f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    log(f"main[{label}] step_s " + json.dumps(
+        {k: round(v, 4) for k, v in timings.items()}))
+    _log_counts(label, counts, at, plain)
+    require(res.converged and res.flux_conserved,
+            f"main[{label}]: converged={res.converged} "
+            f"flux_conserved={res.flux_conserved}")
+    dots = counts.get("k1_matvec_dot_f32", 0)
+    require(dots >= res.iterations,
+            f"main[{label}]: K1 matvec+dot launched {dots} times for "
+            f"{res.iterations} PCG iterations")
+    return {"iterations": res.iterations, "counts": counts, "at": at,
+            "plain": plain, "tau": res.value, "mask": res.active,
+            "wall_s": wall}
+
+
+def _drive_cheby(label, vol, n, dx, precond, runs):
+    """``tortuosity(precond="cheby")`` on a CHEBY_N^3 volume; its tau is held
+    against the default path's on the same volume (``main[iso]``'s, or a
+    default-path call of its own at CHEBY_N where that differs from n)."""
+    from openimpala_tpu_torch import tortuosity
+
+    nc = min(n, CHEBY_N)
+    if nc == n:
+        ref_tau = runs["iso"]["tau"]
+    else:
+        vol = make_blobs(nc, 0.4, SEED)
+        ref = tortuosity(vol, 1, "X", eps=1e-9, dx=dx, device="cuda")
+        require(ref.converged, f"main[{label}]: the default path at {nc}^3 "
+                               "did not converge")
+        ref_tau = ref.value
+        log(f"main[{label}] default path at {nc}^3: tau={ref_tau!r} "
+            f"iterations={ref.iterations}")
+    run = _drive_tau(label, vol, nc, dx, precond)
+    rel = abs(run["tau"] - ref_tau) / abs(ref_tau)
+    log(f"main[{label}] tau against the default path: rel {rel:.3e}")
+    require(rel <= 1e-6,
+            f"main[{label}]: tau differs from the default path by {rel:.3e}")
+    c = run["counts"]
+    k4 = {k: v for k, v in c.items() if k.startswith("k4_")}
+    require(not k4, f"main[{label}]: the preconditioner launched K4: {k4}")
+    # one application per executed iteration (the matvec+dot count), each
+    # degree - 1 operator applications
+    want = (CHEBY_DEGREE - 1) * c.get("k1_matvec_dot_f32", 0)
+    require(c.get("k5_matvec_f32", 0) == want,
+            f"main[{label}]: K5 launched {c.get('k5_matvec_f32', 0)} times, "
+            f"{want} expected for {CHEBY_DEGREE - 1} per application")
+    return run
+
+
+def _drive_deff(label, vol, n, dx, precond):
+    """One ``effective_diffusivity`` call on the whole volume."""
+    from openimpala_tpu_torch import effective_diffusivity
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    sc.reset_counts()
+    t0 = time.perf_counter()
+    res = effective_diffusivity(vol, 1, eps=1e-9, dx=dx, precond=precond,
+                                device="cuda", timings=timings)
+    wall = time.perf_counter() - t0
+    counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
+    log(f"main[{label}] {n}^3 dx={dx} precond={precond}: "
+        f"deff={res.deff.tolist()!r} volume_fraction={res.volume_fraction!r} "
+        f"iterations={res.iterations} rel_res={res.rel_res!r} "
+        f"converged={res.converged} wall_s={wall:.3f} "
+        f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    log(f"main[{label}] step_s " + json.dumps(
+        {k: round(v, 4) for k, v in timings.items()}))
+    _log_counts(label, counts, {}, plain)
+    require(res.converged and max(res.rel_res) <= 1e-9,
+            f"main[{label}]: converged={res.converged} rel_res={res.rel_res}")
+    require(res.deff.shape == (3, 3) and bool(np.isfinite(res.deff).all()),
+            f"main[{label}]: deff not a finite 3x3 tensor")
+    asym = float(np.abs(res.deff - res.deff.T).max())
+    require(asym <= 1e-9, f"main[{label}]: deff asymmetric by {asym:.3e}")
+    vf = float((vol == 1).sum()) / vol.size
+    require(res.volume_fraction == vf,
+            f"main[{label}]: volume_fraction {res.volume_fraction!r} != "
+            f"{vf!r}")
+    its = sum(res.iterations)
+    dots = counts.get("k1_matvec_dot_f32", 0)
+    require(dots >= its, f"main[{label}]: K1 matvec+dot launched {dots} "
+                         f"times for {its} PCG iterations")
+    return {"iterations": its, "counts": counts, "at": {}, "plain": plain,
+            "wall_s": wall}
+
+
+def _drive_rev(label, vol, n, dx):
+    """One ``rev_study`` call: REV_SAMPLES crops of REV_SIZE^3, one batched
+    group.  The iterations each direction executed are read from the launch
+    counters at the direction's two ends, through a recording stand-in for
+    ``batched_cell_problems`` that changes nothing else."""
+    import openimpala_tpu_torch.solve.batched as pb
+    from openimpala_tpu_torch import effective_diffusivity, rev_study
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+
+    size = min(REV_SIZE, n)
+    per_dir = []
+    solve = pb.batched_cell_problems
+
+    def recording(masks, k, *a, **kw):
+        torch.cuda.synchronize()
+        before, t0 = dict(sc.launches), time.perf_counter()
+        out = solve(masks, k, *a, **kw)
+        torch.cuda.synchronize()
+        d = {name: sc.launches[name] - before.get(name, 0) for name in _K4}
+        per_dir.append({"direction": k, "lanes": int(masks.shape[0]),
+                        "seconds": time.perf_counter() - t0,
+                        "executed_iterations": d["k4_matvec_dot_f32"], **d})
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    sc.reset_counts()
+    pb.batched_cell_problems = recording
+    t0 = time.perf_counter()
+    try:
+        samples = rev_study(vol, 1, sizes=(size,), num_samples=REV_SAMPLES,
+                            eps=1e-9, dx=dx, device="cuda")
+    finally:
+        pb.batched_cell_problems = solve
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    crop_bytes = size ** 3 * 4
+    n_conv = sum(s.converged for s in samples)
+    log(f"main[{label}] {REV_SAMPLES} crops of {size}^3 x 3 directions: "
+        f"converged={n_conv}/{len(samples)} wall_s={wall:.3f} "
+        f"peak_mem_GB={peak / 1e9:.3f} "
+        f"bytes_per_crop={peak / REV_SAMPLES:.0f} "
+        f"f32_fields_per_crop={peak / REV_SAMPLES / crop_bytes:.2f} "
+        f"D_xx mean={float(np.mean([s.deff[0, 0] for s in samples]))!r}")
+    log(f"main[{label}] per_direction " + json.dumps(per_dir))
+    _log_counts(label, counts, {}, plain)
+    require(len(samples) == REV_SAMPLES and n_conv == REV_SAMPLES,
+            f"main[{label}]: {n_conv} of {len(samples)} crops converged, "
+            f"{REV_SAMPLES} expected")
+    require(len(per_dir) == 3 and all(d["lanes"] == REV_SAMPLES
+                                      for d in per_dir),
+            f"main[{label}]: not one batched group of {REV_SAMPLES} lanes "
+            f"in three directions: {per_dir}")
+    for d in per_dir:
+        # the polynomial: degree - 1 operator applications each time it is
+        # applied, once per executed iteration and once at the start of
+        # every inner round
+        extra = d["k4_matvec_f32"] - (CHEBY_DEGREE_BATCHED - 1) * d[
+            "executed_iterations"]
+        require(d["executed_iterations"] > 0 and extra > 0
+                and extra % (CHEBY_DEGREE_BATCHED - 1) == 0,
+                f"main[{label}]: direction {d['direction']}: K4 launches "
+                f"{d} do not fit {CHEBY_DEGREE_BATCHED - 1} per application")
+        require(d["k4_matvec_f64"] >= 2,
+                f"main[{label}]: direction {d['direction']}: no float64 "
+                "outer residual through K4")
+    bad = [s.sample_no for s in samples
+           if not np.isfinite(s.deff).all()
+           or np.abs(s.deff - s.deff.T).max() > 1e-8]
+    require(not bad, f"main[{label}]: tensors not finite and symmetric: {bad}")
+    # the batched against the sequential solver on the first crop
+    s0 = samples[0]
+    lo, ext = s0.seed, s0.actual_size
+    crop = vol[lo[0]:lo[0] + ext[0], lo[1]:lo[1] + ext[1],
+               lo[2]:lo[2] + ext[2]]
+    seq = effective_diffusivity(crop, 1, eps=1e-9, dx=dx, device="cuda")
+    err = float(np.abs(seq.deff - s0.deff).max())
+    log(f"main[{label}] crop 1 batched against effective_diffusivity: "
+        f"max abs diff {err:.3e} (sequential iterations {seq.iterations})")
+    require(seq.converged and err <= 1e-6,
+            f"main[{label}]: batched and sequential D_eff differ by {err:.3e}")
+    return {"iterations": sum(d["executed_iterations"] for d in per_dir),
+            "counts": counts, "at": {}, "plain": plain, "wall_s": wall,
+            "samples": samples, "size": size}
+
+
+def phase_main(vol, n):
+    """Drive each main path on its own: the counts are zeroed just before
+    its call and read just after."""
     runs = {}
-    for label, (dx, precond, expect) in PATHS.items():
-        timings = {}
-        torch.cuda.reset_peak_memory_stats()
-        sc.reset_counts()
-        t0 = time.perf_counter()
-        res = tortuosity(vol, 1, "X", eps=1e-9, dx=dx, precond=precond,
-                         device="cuda", timings=timings,
-                         return_fields=(label == "iso"))
-        wall = time.perf_counter() - t0
-        counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
-        at = dict(sc.launches_at)  # (name, extent) -> K3 launches
-        log(f"main[{label}] {n}^3 dx={dx} precond={precond}: "
-            f"tau={res.value!r} "
-            f"active_vf={res.active_vf!r} iterations={res.iterations} "
-            f"rel_res={res.rel_res!r} flux_rel_diff={res.flux_rel_diff!r} "
-            f"converged={res.converged} flux_conserved={res.flux_conserved} "
-            f"wall_s={wall:.3f} "
-            f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
-        log(f"main[{label}] step_s " + json.dumps(
-            {k: round(v, 4) for k, v in timings.items()}))
-        log(f"main[{label}] launches " + json.dumps(counts, sort_keys=True))
-        if at:
-            log(f"main[{label}] k3_launches_by_extent " + json.dumps(
-                {f"{k} {'x'.join(map(str, shp))}": v
-                 for (k, shp), v in sorted(at.items())}))
-        log(f"main[{label}] plain_on_cuda " + json.dumps(plain,
-                                                          sort_keys=True))
-        require(res.converged and res.flux_conserved,
-                f"main[{label}]: converged={res.converged} "
-                f"flux_conserved={res.flux_conserved}")
-        dots = counts.get("k1_matvec_dot_f32", 0)
-        require(dots >= res.iterations,
-                f"main[{label}]: K1 matvec+dot launched {dots} times for "
-                f"{res.iterations} PCG iterations")
-        missing = [k for k in expect if counts.get(k, 0) == 0]
+    for label, (kind, dx, precond, expect) in PATHS.items():
+        if label == "cheby":
+            run = _drive_cheby(label, vol, n, dx, precond, runs)
+        elif kind == "tau":
+            run = _drive_tau(label, vol, n, dx, precond)
+        elif kind == "deff":
+            run = _drive_deff(label, vol, n, dx, precond)
+        else:
+            run = _drive_rev(label, vol, n, dx)
+        missing = [k for k in expect if run["counts"].get(k, 0) == 0]
         require(not missing, f"main[{label}]: never launched: {missing}")
-        require(not plain,
-                f"main[{label}]: plain versions ran on CUDA tensors: {plain}")
-        runs[label] = {"iterations": res.iterations, "counts": counts,
-                       "at": at, "tau": res.value}
-        if label == "iso":
-            active = res.active
-        del res
+        require(not run["plain"], f"main[{label}]: plain versions ran on "
+                                  f"CUDA tensors: {run['plain']}")
+        if label not in ("iso", "cheby"):
+            run.pop("mask", None)  # the times phase rebuilds from these two
+        runs[label] = run
     rel = abs(runs["sa"]["tau"] - runs["iso"]["tau"]) / abs(runs["iso"]["tau"])
     log(f"main[sa] tau against main[iso]: rel {rel:.3e}")
     require(rel <= 1e-6, f"main[sa]: tau differs from main[iso] by {rel:.3e}")
-    return runs, active
+    return runs
 
 
 def phase_parity(seed):
-    from openimpala_tpu_torch import tortuosity
+    from openimpala_tpu_torch import effective_diffusivity, tortuosity
 
     vol = make_blobs(64, 0.4, seed)
+    gpu = effective_diffusivity(vol, 1, eps=1e-9, device="cuda")
+    cpu = effective_diffusivity(vol, 1, eps=1e-9, device="cpu")
+    err = float(np.abs(gpu.deff - cpu.deff).max())
+    log(f"parity 64^3 effective_diffusivity: deff gpu={gpu.deff.tolist()!r} "
+        f"max abs diff to cpu={err:.3e} iterations gpu={gpu.iterations} "
+        f"cpu={cpu.iterations}")
+    require(gpu.converged and cpu.converged and err <= 1e-6,
+            f"parity[deff]: tensors differ by {err:.3e} > 1e-6")
+    require(gpu.volume_fraction == cpu.volume_fraction,
+            "parity[deff]: volume_fraction differs")
     for precond in ("auto", "sa"):
         gpu = tortuosity(vol, 1, "X", eps=1e-9, precond=precond,
                          device="cuda")
@@ -624,19 +941,176 @@ def _k3_levels(chk, mg, gen, run, fns, cost):
     return per_level
 
 
-def phase_times(chk, active_np, seed, runs):
+def _restricted_fns(x, diag, free, w, per, k5: bool):
+    """K4's three counters (and K5 where the input allows it) on one
+    (diag, free): name -> (kernel call, plain call, shape)."""
+    from openimpala_tpu_torch.ops import stencil as st
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+
+    shape = tuple(x.shape)
+    x64, d64 = x.double(), diag.double()
+
+    def plain():
+        return st.apply_restricted_plain(x, diag, free, w, per)
+
+    fns = {
+        "k4_matvec_dot_f32": (
+            lambda: sc.k4_matvec(x, diag, free, w, per, with_dot=True),
+            lambda: st.apply_restricted_with_dot_plain(x, diag, free, w, per),
+            shape),
+        "k4_matvec_f32": (
+            lambda: sc.k4_matvec(x, diag, free, w, per), plain, shape),
+        "k4_matvec_f64": (
+            lambda: sc.k4_matvec(x64, d64, free, w, per),
+            lambda: st.apply_restricted_plain(x64, d64, free, w, per), shape),
+    }
+    if k5:
+        fns["k5_matvec_f32"] = (
+            lambda: sc.k5_matvec_stream(x, diag, free, w, per), plain, shape)
+    return fns
+
+
+def _time_path_kernels(by_path, label, names, fns, run, cost=None,
+                       k3_levels=None):
+    """Time each of a path's kernels (graph, eager, plain) and file the
+    record under ``by_path[name][label]``."""
+    it = run["iterations"]
+    for name in names:
+        kfn, pfn, kshape = fns[name]
+        n = run["counts"].get(name, 0)
+        t = {"launches": n, "launches_per_pcg_iter": n / it,
+             "shape": list(kshape), "ms": graph_ms(kfn),
+             "ms_eager": cuda_ms(kfn, 20),
+             "plain_ms": cuda_ms(pfn, 3, warmup=1)}
+        if cost and name in cost:
+            t["bytes_per_cell"], t["flops_per_cell"] = cost[name]
+            lv = k3_levels[name]
+            t["levels"] = lv
+            t["ms_all_launches"] = sum(v["ms"] * v["launches"] for v in lv)
+            t["bound_ms_all_launches"] = sum(
+                v["bound_ms"] * v["launches"] for v in lv)
+        by_path[name][label] = t
+        log(f"times {name} [{label}] {kshape}: {t['ms']:.4f} ms graph, "
+            f"{t['ms_eager']:.4f} ms eager, plain {t['plain_ms']:.3f} ms;"
+            f" launches {n} ({t['launches_per_pcg_iter']:.2f}/iter)")
+        if "levels" in t:
+            log(f"times {name} [{label}] all {n} launches, each at its "
+                f"level's time: {t['ms_all_launches']:.1f} ms, bound "
+                f"{t['bound_ms_all_launches']:.1f} ms")
+
+
+def _k4_beside_k5(chk, M, x, case):
+    """K5 and K4 (full diag, with the dot, a scalar diag, float64) on one
+    (diag, free), each held against the plain form and timed from a CUDA
+    graph.  The scalar is the system's largest diagonal entry: the same
+    bytes as any scalar."""
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+
+    w, per = M.w, M.periodic
+    check_restricted(chk, x, M.diag, M.free, w, per, case)
+    fns = _restricted_fns(x, M.diag, M.free, w, per, k5=True)
+    scalar = M.diag.max()
+    cells = float(np.prod(M.diag.shape))
+    beside = {
+        "shape": list(M.diag.shape),
+        "k5_ms": graph_ms(fns["k5_matvec_f32"][0]),
+        "k4_full_diag_ms": graph_ms(fns["k4_matvec_f32"][0]),
+        "k4_with_dot_ms": graph_ms(fns["k4_matvec_dot_f32"][0]),
+        "k4_scalar_diag_ms": graph_ms(
+            lambda: sc.k4_matvec(x, scalar, M.free, w, per)),
+        "k4_f64_full_diag_ms": graph_ms(fns["k4_matvec_f64"][0]),
+        "plain_ms": cuda_ms(fns["k5_matvec_f32"][1], 3, warmup=1),
+        "full_diag_bound_ms": 13.0 * cells / PEAK_BYTES_S * 1e3,
+        "scalar_diag_bound_ms": 9.0 * cells / PEAK_BYTES_S * 1e3,
+        "f64_full_diag_bound_ms": 25.0 * cells / PEAK_BYTES_S * 1e3,
+    }
+    log(f"times K4 beside K5 [{case}]: " + json.dumps(
+        {k: round(v, 4) if isinstance(v, float) else v
+         for k, v in beside.items()}))
+    return fns, beside
+
+
+def _times_cheby(chk, by_path, label, system, M, gen, runs, expect):
+    """K5 on the ``cheby`` path's own (diag, free), with K4 beside it on
+    the same input; then the two side by side on the default path's
+    full-size system, where the ``cheby`` path ran on a smaller volume."""
+    from openimpala_tpu_torch.ops import stencil as st
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+    from openimpala_tpu_torch.ops.stencil import make_tortuosity_system
+    from openimpala_tpu_torch.solve.preconditioners import (
+        ChebyshevPreconditioner)
+
+    w, per = M.w, M.periodic
+    dims = "x".join(map(str, M.diag.shape))
+    case = f"main[{label}] (diag, free) {dims}"
+    x, r = check_k1(chk, system, gen, torch.float32, case,
+                    modes=("matvec_dot", "matvec"))
+    x64 = x.double()
+    chk.close("k1_matvec_f64",
+              sc.k1_stencil("matvec", x64, None, system.code, w, per),
+              st.apply_code_plain(x64, system.code, w, per), torch.float64,
+              case)
+    del x64
+    fns = _k1_fns(system, x, r)
+    k45, beside = _k4_beside_k5(chk, M, x, case)
+    fns.update(k45)
+    _time_path_kernels(by_path, label, expect, fns, runs[label])
+    rec = by_path["k5_matvec_f32"][label]
+    rec["k4_on_the_same_input"] = beside
+    full = runs["iso"]["mask"]
+    if full.shape != tuple(M.diag.shape):
+        del fns, k45, x, r
+        torch.cuda.empty_cache()
+        big = make_tortuosity_system(
+            torch.from_numpy(full).to(M.diag.device), 0, -1.0, 1.0,
+            dtype=torch.float32)
+        Mb = ChebyshevPreconditioner.from_system(big)
+        xb = torch.where(Mb.free, torch.randn(
+            full.shape, generator=gen, dtype=torch.float32,
+            device=M.diag.device), 0.0)
+        rec["side_by_side_full_size"] = _k4_beside_k5(
+            chk, Mb, xb, "main[iso] (diag, free) "
+            + "x".join(map(str, full.shape)))[1]
+
+
+def _times_rev(chk, by_path, label, vol, run, gen, expect):
+    """K4 on the ``rev`` path's own batch: the crops the run drew, their
+    (diag, free) as ``_make_precond`` holds them, 64 lanes."""
+    from openimpala_tpu_torch.ops.stencil import make_cell_problem_system
+    from openimpala_tpu_torch.solve.batched import _make_precond
+
+    dev = torch.device("cuda")
+    crops = np.stack([
+        vol[s.seed[0]:s.seed[0] + s.actual_size[0],
+            s.seed[1]:s.seed[1] + s.actual_size[1],
+            s.seed[2]:s.seed[2] + s.actual_size[2]]
+        for s in run["samples"]])
+    masks = torch.from_numpy(crops == 1).to(dev)
+    systems = make_cell_problem_system(masks, 0, dtype=torch.float32)
+    M = _make_precond(systems, systems.r0_b, "cheby", CHEBY_DEGREE_BATCHED)
+    x = torch.where(M.free, torch.randn(masks.shape, generator=gen,
+                                        dtype=torch.float32, device=dev), 0.0)
+    case = f"main[{label}] batch " + "x".join(map(str, masks.shape))
+    check_restricted(chk, x, M.diag, M.free, M.w, M.periodic, case)
+    check_restricted(chk, x.double(), M.diag.double(), M.free, M.w,
+                     M.periodic, case)
+    fns = _restricted_fns(x, M.diag, M.free, M.w, M.periodic, k5=False)
+    _time_path_kernels(by_path, label, expect, fns, run)
+
+
+def phase_times(chk, vol, seed, runs):
     """For each main path, hold its kernels against their plain versions on
     that path's own system and coarse levels, then time them: the kernel
     from a CUDA graph (``ms``) and back to back from the host
     (``ms_eager``), the plain version with CUDA events."""
     from openimpala_tpu_torch.ops import stencil as st
     from openimpala_tpu_torch.ops import stencil_cuda as sc
-    from openimpala_tpu_torch.ops.stencil import make_tortuosity_system
+    from openimpala_tpu_torch.ops.stencil import (
+        make_cell_problem_system, make_tortuosity_system)
     from openimpala_tpu_torch.solve.refine import make_precond
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    active = torch.from_numpy(active_np).to(dev)
 
     # device-to-device copy rate, for reading the bound against this card
     big = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=dev)
@@ -646,15 +1120,32 @@ def phase_times(chk, active_np, seed, runs):
     log(f"times: device copy {copy_gbs:.1f} GB/s (read+write)")
 
     by_path = {name: {} for name in PATH_KERNELS}
-    for label, (dx, precond, expect) in PATHS.items():
-        system = make_tortuosity_system(active, 0, -1.0, 1.0, dx=dx,
-                                        dtype=torch.float32)
+    for label, (kind, dx, precond, expect) in PATHS.items():
+        if kind == "rev":
+            _times_rev(chk, by_path, label, vol, runs[label], gen, expect)
+            torch.cuda.empty_cache()
+            continue
+        if kind == "deff":  # the periodic cell problem on the pore mask
+            active = torch.from_numpy(vol == 1).to(dev)
+            system = make_cell_problem_system(active, 0, dx=dx,
+                                              dtype=torch.float32)
+        else:  # the percolation mask of the run (the cheby path's own)
+            mask = runs["cheby" if label == "cheby" else "iso"]["mask"]
+            active = torch.from_numpy(mask).to(dev)
+            system = make_tortuosity_system(active, 0, -1.0, 1.0, dx=dx,
+                                            dtype=torch.float32)
+        del active
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mg = make_precond(system, precond)
         torch.cuda.synchronize()
         log(f"times [{label}]: hierarchy rebuilt in "
             f"{time.perf_counter() - t0:.3f} s")
+        if precond == "cheby":
+            _times_cheby(chk, by_path, label, system, mg, gen, runs, expect)
+            del system, mg
+            torch.cuda.empty_cache()
+            continue
         code, w, per = system.code, system.w, system.periodic
         case = f"main[{label}] system " + "x".join(map(str, code.shape))
         modes = [m for m in ("matvec_dot", "matvec", "resid", "sweep",
@@ -667,6 +1158,7 @@ def phase_times(chk, active_np, seed, runs):
         del x64
         fns = _k1_fns(system, x, r)
         cost = {}  # name -> (bytes, flops) per cell, where the run sets them
+        k3_levels = None
         if precond == "sa":
             k3_levels = _k3_levels(chk, mg, gen, runs[label], fns, cost)
         else:
@@ -676,38 +1168,18 @@ def phase_times(chk, active_np, seed, runs):
                       for li, lvl in enumerate(mg.levels)]
             fns.update(_k2_fns(levels))
             del levels
-        it = runs[label]["iterations"]
-        for name in expect:
-            kfn, pfn, kshape = fns[name]
-            n = runs[label]["counts"].get(name, 0)
-            t = {"launches": n, "launches_per_pcg_iter": n / it,
-                 "shape": list(kshape), "ms": graph_ms(kfn),
-                 "ms_eager": cuda_ms(kfn, 20),
-                 "plain_ms": cuda_ms(pfn, 3, warmup=1)}
-            if name in cost:
-                t["bytes_per_cell"], t["flops_per_cell"] = cost[name]
-                lv = k3_levels[name]
-                t["levels"] = lv
-                t["ms_all_launches"] = sum(v["ms"] * v["launches"]
-                                           for v in lv)
-                t["bound_ms_all_launches"] = sum(
-                    v["bound_ms"] * v["launches"] for v in lv)
-            by_path[name][label] = t
-            log(f"times {name} [{label}] {kshape}: {t['ms']:.4f} ms graph, "
-                f"{t['ms_eager']:.4f} ms eager, plain {t['plain_ms']:.3f} ms;"
-                f" launches {n} ({t['launches_per_pcg_iter']:.2f}/iter)")
-            if "levels" in t:
-                log(f"times {name} [{label}] all {n} launches, each at its "
-                    f"level's time: {t['ms_all_launches']:.1f} ms, bound "
-                    f"{t['bound_ms_all_launches']:.1f} ms")
+        _time_path_kernels(by_path, label, expect, fns, runs[label], cost,
+                           k3_levels)
         del system, mg, fns, x, r
         torch.cuda.empty_cache()
 
     kernels = []
     for name, (src, tpu, bpc, fpc, dtype) in PATH_KERNELS.items():
         paths = by_path[name]
-        # the headline numbers come from the path that launches it most
-        main_label = max(paths, key=lambda p: paths[p]["launches"])
+        # the headline numbers come from the path where it does most work
+        # (launches times cells)
+        main_label = max(paths, key=lambda p: paths[p]["launches"]
+                         * float(np.prod(paths[p]["shape"])))
         t = paths[main_label]
         if bpc is None:  # K3: set by the taps of the level this run built
             bpc, fpc = t["bytes_per_cell"], t["flops_per_cell"]
@@ -755,11 +1227,10 @@ def main(argv=None):
         log(f"volume {args.n}^3 blobs porosity 0.4 seed {SEED}: "
             f"{time.perf_counter() - t0:.1f} s, pore fraction "
             f"{vol.mean():.4f}")
-        runs, active_np = phase_main(vol, args.n)
-        del vol
+        runs = phase_main(vol, args.n)
         phase_parity(SEED)
         torch.cuda.empty_cache()
-        kernels = phase_times(chk, active_np, SEED, runs)
+        kernels = phase_times(chk, vol, SEED, runs)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -12,5 +12,10 @@ unless the caller passes ``device="cpu"``.
 
 __version__ = "0.1.0"
 
+from .props.effective_diffusivity import (  # noqa: F401
+    EffectiveDiffusivityResult,
+    effective_diffusivity,
+)
+from .props.rev import rev_study  # noqa: F401
 from .props.tortuosity import TortuosityResult, tortuosity  # noqa: F401
 from .props.volume_fraction import volume_fraction  # noqa: F401

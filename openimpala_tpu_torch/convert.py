@@ -1,7 +1,7 @@
 """Carry solver state across from the JAX package: build the port's
-objects from the leaves of a JAX ``StencilSystem``, Galerkin level or
-smoothed-aggregation preconditioner, given as numpy arrays.  Used by the parity tests to run both solvers on the very
-same system."""
+objects from the leaves of a JAX ``StencilSystem``, Galerkin level,
+Chebyshev or smoothed-aggregation preconditioner, given as numpy arrays.
+Used by the parity tests to run both solvers on the very same system."""
 
 from __future__ import annotations
 
@@ -9,7 +9,11 @@ import numpy as np
 import torch
 
 from .ops.stencil import StencilSystem
-from .solve.preconditioners import ConductanceLevel, MGLevel
+from .solve.preconditioners import (
+    ChebyshevPreconditioner,
+    ConductanceLevel,
+    MGLevel,
+)
 from .solve.sa import OffsetLevel, SAMGPreconditioner
 from .utils.common import resolve_device
 
@@ -71,3 +75,17 @@ def sa_preconditioner_from_numpy(code, w, periodic, dinv0, levels,
         levels=tuple(offset_level_from_numpy(*lvl, device=dev)
                      for lvl in levels),
         **static)
+
+
+def chebyshev_preconditioner_from_numpy(diag, free, w, periodic, degree, hi,
+                                        ratio, device=None
+                                        ) -> ChebyshevPreconditioner:
+    """The port's ChebyshevPreconditioner from a JAX one's leaves (``diag``,
+    ``free``) and static fields, so that both apply the same polynomial."""
+    dev = resolve_device(device)
+    return ChebyshevPreconditioner(
+        diag=_tensor(diag, dev).contiguous(),
+        free=_tensor(free, dev).to(torch.bool),
+        w=tuple(float(v) for v in w),
+        periodic=tuple(bool(p) for p in periodic),
+        degree=int(degree), hi=float(hi), ratio=float(ratio))

@@ -1,4 +1,4 @@
-// Shared helpers of the hand-written stencil kernels (K1, K2).
+// Shared helpers of the hand-written stencil kernels (K1, K2, K4, K5).
 #pragma once
 
 #include <cstdint>
@@ -40,13 +40,16 @@ __device__ __forceinline__ double block_sum(double v) {
   return s[0];
 }
 
-// Second stage of a deterministic reduction: one block of 1024 threads
-// sums n per-block partials in a fixed order and writes the total as T.
+// Second stage of a deterministic reduction: each block of 1024 threads
+// sums the n per-block partials of one lane (block b: partials[b*n ..
+// (b+1)*n)) in a fixed order and writes the total as total[b].  A launch
+// with one block reduces one unbatched volume.
 template <typename T>
 __global__ void __launch_bounds__(1024)
     reduce_partials(const double* __restrict__ partials, int64_t n,
                     T* __restrict__ total) {
   __shared__ double s[1024];
+  partials += static_cast<int64_t>(blockIdx.x) * n;
   double a = 0.0;
   for (int64_t i = threadIdx.x; i < n; i += 1024) a += partials[i];
   s[threadIdx.x] = a;
@@ -55,7 +58,7 @@ __global__ void __launch_bounds__(1024)
     if (threadIdx.x < h) s[threadIdx.x] += s[threadIdx.x + h];
     __syncthreads();
   }
-  if (threadIdx.x == 0) total[0] = static_cast<T>(s[0]);
+  if (threadIdx.x == 0) total[blockIdx.x] = static_cast<T>(s[0]);
 }
 
 }  // namespace oit

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of the stencil path: build, load, launch
-(K1 and K2 here; K3's launcher is ``ops/offset_cuda.py``, on this module's
-build, loader, checks and counters).
+(K1, K2, K4 and K5 here; K3's launcher is ``ops/offset_cuda.py``, on this
+module's build, loader, checks and counters).
 
 K1 (``csrc/k1_stencil.cu``) replaces
 ``openimpala_tpu/ops/stencil_pallas.py::fused_stencil_pallas`` (body
@@ -13,7 +13,20 @@ K2 (``csrc/k2_conductance.cu``) replaces
 ``_cond_kernel``): the face-conductance operator of the Galerkin coarse
 levels, in modes matvec and sweep; float32 and float64.
 
-Bound on an H100: both are memory-bound stencils (about 1 flop per byte,
+K4 (``csrc/k4_matvec.cu``) replaces
+``openimpala_tpu/ops/stencil_pallas.py::stencil_matvec_pallas`` (body
+``_matvec_kernel``): the masked 7-point operator from explicit (diag, free)
+arrays, diag a scalar, one scalar per lane or a full array, over an
+optional batch of volumes (each lane wraps on its own), with the optional
+fused <x, Ax> per lane; float32 and float64.
+
+K5 (``csrc/k5_matvec_stream.cu``) replaces
+``openimpala_tpu/ops/stencil_pallas.py::stencil_matvec_pallas_v2`` (body
+``_matvec_kernel_v2``): the same function with a full-array diag, no dot
+and no batch, as one streaming pass down X with the current plane's tile
+in shared memory; float32 and float64.
+
+Bound on an H100: all four are memory-bound stencils (about 1 flop per byte,
 far below the card's ~20 flop/byte f32 balance).  Compulsory traffic per
 cell, each input read once and each output written once:
 
@@ -22,6 +35,8 @@ cell, each input read once and each output written once:
     K1 restrict (x, r, code, out/8)     10.5 B f32
     K2 matvec (x, cx, cy, cz, diag, out) 24 B f32
     K2 sweep (adds r)                   28 B f32
+    K4 / K5 (x, diag, free, out)        13 B f32   25 B f64
+    K4 with a scalar or per-lane diag    9 B f32   17 B f64
 
 What the simple design leaves on the table: neighbours along Y and Z are
 re-read through L1/L2 instead of from a shared-memory tile, loads are
@@ -38,7 +53,8 @@ are loaded with ctypes.  Nothing is compiled or loaded at import time.
 
 Counters: every launch adds one to ``launches[name]``
 (``k1_<mode>[_dot]_<f32|f64>``, ``k2_<mode>_<f32|f64>``,
-``k3_<mode>_<f32|f64>``, ``k3_apply_prefix_<f32|f64>``), and every call of
+``k3_<mode>_<f32|f64>``, ``k3_apply_prefix_<f32|f64>``,
+``k4_matvec[_dot]_<f32|f64>``, ``k5_matvec_<f32|f64>``), and every call of
 a plain form with a CUDA tensor adds one to ``plain_on_cuda[name]``.
 K3 runs on every level of a hierarchy, so its launcher also adds one to
 ``launches_at[(name, (X, Y, Z))]``: the same launches, split by extent.
@@ -60,7 +76,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = {"k1": "k1_stencil.cu", "k2": "k2_conductance.cu",
-           "k3": "k3_offset.cu"}
+           "k3": "k3_offset.cu", "k4": "k4_matvec.cu",
+           "k5": "k5_matvec_stream.cu"}
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -166,10 +183,20 @@ def _load(name: str):
             for fn in (lib.k2_launch_f32, lib.k2_launch_f64):
                 fn.argtypes = [i, p, p, p, p, p, p, p, ll, ll, ll, d, p]
                 fn.restype = i
-        else:
+        elif name == "k3":
             lib.k3_launch.argtypes = [i, i, i, p, p, p, p, ll, ll, ll, i, i,
                                       i, ctypes.c_char_p, d, p]
             lib.k3_launch.restype = i
+        elif name == "k4":
+            lib.k4_launch.argtypes = [i, i, i, p, p, p, p, p, p, ll, ll, ll,
+                                      ll, i, i, i, d, d, d, p]
+            lib.k4_launch.restype = i
+            lib.k4_num_partials.argtypes = [ll, ll, ll, ll]
+            lib.k4_num_partials.restype = ll
+        else:
+            lib.k5_launch.argtypes = [i, p, p, p, p, ll, ll, ll, i, i, i, d,
+                                      d, d, p]
+            lib.k5_launch.restype = i
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [i]
         err.restype = ctypes.c_char_p
@@ -177,15 +204,16 @@ def _load(name: str):
         return lib
 
 
-def _check(t, what: str, like=None, dtype=None):
+def _check(t, what: str, like=None, dtype=None, ndim=(3,)):
     if t is None:
         raise ValueError(f"{what} is required")
     if not t.is_cuda:
         raise ValueError(f"{what} must be a CUDA tensor (got {t.device})")
     if t.device.index != torch.cuda.current_device():
         raise ValueError(f"{what} is on {t.device}, not the current device")
-    if t.dim() != 3:
-        raise ValueError(f"{what} must be 3-D (got shape {tuple(t.shape)})")
+    if t.dim() not in ndim:
+        raise ValueError(f"{what} must be {' or '.join(map(str, ndim))}-D "
+                         f"(got shape {tuple(t.shape)})")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
     if dtype is not None and t.dtype != dtype:
@@ -197,15 +225,18 @@ def _check(t, what: str, like=None, dtype=None):
         raise ValueError(f"{what} is on {t.device}, x on {like.device}")
 
 
-def _check_x(x, kernel: str):
-    _check(x, "x")
+def _check_x(x, kernel: str, ndim=(3,)):
+    _check(x, "x", ndim=ndim)
     if x.dtype not in _DTYPES:
         raise ValueError(f"{kernel}: x must be float32 or float64 "
                          f"(got {x.dtype})")
-    X, Y, Z = x.shape
-    if min(X, Y, Z) < 1:
+    X, Y, Z = x.shape[-3:]
+    if min(x.shape) < 1:
         raise ValueError(f"{kernel}: empty volume {tuple(x.shape)}")
-    if -(-Y // 8) > _GRID_YZ_MAX or X > _GRID_YZ_MAX:
+    lanes = x.shape[0] if x.dim() == 4 else 1
+    # K4 carries the batch in gridDim.z beside the X runs of 8 planes
+    if (-(-Y // 8) > _GRID_YZ_MAX or X > _GRID_YZ_MAX
+            or lanes * -(-X // 8) > _GRID_YZ_MAX):
         raise ValueError(f"{kernel}: extent {tuple(x.shape)} exceeds the grid")
 
 
@@ -278,4 +309,83 @@ def k2_conductance(mode: str, x, r, cx, cy, cz, diag, omega: float = 0.9):
              torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, lib, "k2", f"K2 {mode}")
     launches[f"k2_{mode}_{_DTYPES[x.dtype]}"] += 1
+    return out
+
+
+def _check_free(free, x, kernel: str):
+    _check(free, "free", like=x, ndim=(3, 4))
+    if free.dtype not in (torch.bool, torch.int8):
+        raise ValueError(f"{kernel}: free must be bool or int8 "
+                         f"(got {free.dtype})")
+
+
+K4_DIAG_MODES = {"scalar": 0, "lane": 1, "full": 2}
+
+
+def k4_matvec(x, diag, free, w, periodic, with_dot: bool = False):
+    """Launch K4 on the current stream: ``free ? diag*x - sum_f w_f x_nbr :
+    0``.  ``x`` float32/float64, contiguous (X, Y, Z) or (B, X, Y, Z) on the
+    current CUDA device, each lane wrapping or clamping on its own; ``diag``
+    of ``x``'s dtype: 0-d (one scalar), (B,) (one scalar per lane) or like
+    ``x``; ``free`` bool or int8 like ``x``.  Returns ``out``, or ``(out,
+    dot)`` when ``with_dot``, ``dot = <x, out>`` per lane: 0-d for a 3-D
+    ``x``, (B,) for a batch, in ``x``'s dtype."""
+    _check_x(x, "K4", ndim=(3, 4))
+    _check_free(free, x, "K4")
+    B = x.shape[0] if x.dim() == 4 else 1
+    X, Y, Z = x.shape[-3:]
+    if diag is None or not diag.is_cuda or diag.device != x.device:
+        raise ValueError("K4: diag must be a CUDA tensor on x's device")
+    if diag.dtype != x.dtype:
+        raise ValueError(f"K4: diag must be {x.dtype} (got {diag.dtype})")
+    if diag.dim() == 0:
+        mode = "scalar"
+    elif x.dim() == 4 and tuple(diag.shape) == (B,):
+        mode = "lane"
+    elif diag.shape == x.shape:
+        mode = "full"
+    else:
+        raise ValueError(f"K4: diag shape {tuple(diag.shape)} is neither "
+                         f"(), (B,) nor {tuple(x.shape)}")
+    if not diag.is_contiguous():
+        raise ValueError("K4: diag must be contiguous")
+    lib = _load("k4")
+    out = torch.empty_like(x)
+    partials = dot = None
+    if with_dot:
+        partials = torch.empty(lib.k4_num_partials(B, X, Y, Z),
+                               dtype=torch.float64, device=x.device)
+        dot = torch.empty(x.shape[:-3], dtype=x.dtype, device=x.device)
+    err = lib.k4_launch(
+        int(x.dtype == torch.float64), K4_DIAG_MODES[mode], int(with_dot),
+        x.data_ptr(), diag.data_ptr(), free.data_ptr(), out.data_ptr(),
+        None if partials is None else partials.data_ptr(),
+        None if dot is None else dot.data_ptr(), B, X, Y, Z,
+        int(bool(periodic[0])), int(bool(periodic[1])),
+        int(bool(periodic[2])), float(w[0]), float(w[1]), float(w[2]),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, lib, "k4", "K4 matvec")
+    launches[f"k4_matvec{'_dot' if with_dot else ''}_{_DTYPES[x.dtype]}"] += 1
+    return (out, dot) if with_dot else out
+
+
+def k5_matvec_stream(x, diag, free, w, periodic):
+    """Launch K5 on the current stream: the function of K4 as one streaming
+    pass down X.  ``x`` float32/float64, contiguous (X, Y, Z) on the
+    current CUDA device; ``diag`` like ``x``, ``free`` bool or int8 like
+    ``x``.  Returns ``out``."""
+    _check_x(x, "K5")
+    _check(diag, "diag", like=x, dtype=x.dtype)
+    _check_free(free, x, "K5")
+    X, Y, Z = x.shape
+    lib = _load("k5")
+    out = torch.empty_like(x)
+    err = lib.k5_launch(
+        int(x.dtype == torch.float64), x.data_ptr(), diag.data_ptr(),
+        free.data_ptr(), out.data_ptr(), X, Y, Z, int(bool(periodic[0])),
+        int(bool(periodic[1])), int(bool(periodic[2])), float(w[0]),
+        float(w[1]), float(w[2]),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, lib, "k5", "K5 matvec")
+    launches[f"k5_matvec_{_DTYPES[x.dtype]}"] += 1
     return out

@@ -1,0 +1,160 @@
+"""Homogenised effective-diffusivity tensor (counterpart of
+``openimpala_tpu/props/effective_diffusivity.py``; reference
+``OpenImpala::EffectiveDiffusivityHypre``,
+``src/props/EffectiveDiffusivityHypre.{H,cpp}``, plus the tensor integration
+in the application, ``Diffusion.cpp:60-167``):
+
+solve the periodic corrector (cell) problems
+
+    div( D grad chi_k ) = -div( D e_k ),   D = 1 in the target phase else 0
+
+for k in {X, Y, Z} with periodic BCs and internal Neumann at pore-solid
+interfaces (``ops/stencil.py::make_cell_problem_system``), then
+volume-average
+
+    D_eff[a][b] = (1/N_total) * sum_active ( delta_ab - d chi_b / d xi_a ).
+
+The three solves run one after the other and share one preconditioner.
+The lockstep lanes of the JAX package (``solve/lanes.py``) are not ported:
+``lanes="auto"`` takes the sequential loop and ``lanes=True`` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..ops.flux import deff_integrand_sum
+from ..ops.stencil import make_cell_problem_system
+from ..solve.cg import ResidualHistory
+from ..solve.refine import make_precond, solve_system
+from ..utils.common import resolve_device
+from ..utils.profiling import phase_timer
+
+
+@dataclasses.dataclass
+class EffectiveDiffusivityResult:
+    deff: np.ndarray  # (3,3) tensor, NaN if any solve failed
+    converged: bool
+    iterations: tuple
+    rel_res: tuple
+    volume_fraction: float  # active-phase VF (D=1 fraction)
+    chi: tuple = None  # (chi_x, chi_y, chi_z) fields if return_fields
+    history: tuple = None  # one ResidualHistory per direction if asked
+
+
+def effective_diffusivity(
+    phase,
+    phase_id: int,
+    eps: float = 1e-9,
+    maxiter: int = 20000,
+    method: str = "cg",
+    precond: str = "auto",
+    precond_opts: dict = None,
+    dx=(1.0, 1.0, 1.0),
+    inner_dtype=torch.float32,
+    dtype=torch.float64,
+    return_fields: bool = False,
+    return_history: bool = False,
+    verbose: int = 0,
+    lanes: bool | str = "auto",
+    device=None,
+    timings: dict | None = None,
+) -> EffectiveDiffusivityResult:
+    """D_eff tensor of ``phase_id`` in the (X, Y, Z) volume ``phase`` (numpy
+    array or tensor) by periodic homogenisation.
+
+    ``device``: None means CUDA, and raises where there is none; pass
+    ``"cpu"`` to run on the CPU.  ``timings``: optional dict that receives
+    the wall seconds of each step, summed over the three directions.
+    """
+    if lanes is True:
+        raise NotImplementedError(
+            "lockstep lanes (solve/lanes.py) are not ported; use "
+            "lanes='auto' or False")
+    dev = resolve_device(device)
+    if isinstance(phase, torch.Tensor):
+        phase = phase.cpu().numpy()
+    phase = np.asarray(phase)
+    n_total = int(np.prod(phase.shape))
+    active_np = phase == phase_id
+    n_active = int(active_np.sum())
+    vf = n_active / n_total
+
+    if n_active == 0:
+        # zero-active shortcut: chi = 0, converged
+        # (EffectiveDiffusivityHypre.cpp:558-570)
+        chis = None
+        if return_fields:
+            zeros = torch.zeros(phase.shape, dtype=dtype, device=dev)
+            chis = (zeros, zeros, zeros)
+        return EffectiveDiffusivityResult(
+            deff=np.zeros((3, 3)), converged=True, iterations=(0, 0, 0),
+            rel_res=(0.0, 0.0, 0.0), volume_fraction=0.0, chi=chis,
+        )
+
+    storage = dtype if inner_dtype is None else inner_dtype
+    with phase_timer(timings, "mask_upload", dev):
+        active = torch.from_numpy(active_np).to(dev)
+
+    chis, iters, rels, convs, hists = [], [], [], [], []
+    M = None
+    for k in range(3):
+        with phase_timer(timings, "system_setup", dev):
+            system = make_cell_problem_system(active, k, tuple(dx),
+                                              dtype=storage)
+            # zero initial iterate (EffDiffFillMtx.F90:126)
+            x0 = torch.zeros(active.shape, dtype=storage, device=dev)
+        if M is None:
+            # the cell-problem OPERATOR is k-independent (only the RHS
+            # carries the direction), so the preconditioner builds once
+            # and is shared by all three chi solves
+            with phase_timer(timings, "hierarchy_build", dev):
+                M = make_precond(system, precond, precond_opts)
+        hist_k = ResidualHistory() if return_history else None
+        hists.append(hist_k)
+        with phase_timer(timings, "solve", dev):
+            chi_k, info = solve_system(
+                system, x0, eps=eps, maxiter=maxiter, method=method,
+                precond=M, inner_dtype=inner_dtype, outer_dtype=dtype,
+                precond_opts=precond_opts, verbose=verbose, history=hist_k,
+                timings=timings,
+            )
+        del system, x0
+        chis.append(chi_k)
+        iters.append(int(info.iterations))
+        rels.append(float(info.rel_res))
+        convs.append(bool(info.converged))
+        if verbose > 0:
+            print(f"  chi_{'xyz'[k]}: iters={iters[-1]} "
+                  f"rel_res={rels[-1]:.3e} converged={convs[-1]}")
+
+    converged = all(convs)
+    if converged:
+        with phase_timer(timings, "deff_tensor", dev):
+            deff = deff_tensor(chis[0], chis[1], chis[2], active, dx,
+                               n_total=n_total).cpu().numpy()
+    else:
+        deff = np.full((3, 3), math.nan)
+
+    return EffectiveDiffusivityResult(
+        deff=deff, converged=converged, iterations=tuple(iters),
+        rel_res=tuple(rels), volume_fraction=vf,
+        chi=tuple(chis) if return_fields else None,
+        history=tuple(hists) if return_history else None,
+    )
+
+
+def deff_tensor(chi_x, chi_y, chi_z, active, dx=(1.0, 1.0, 1.0),
+                n_total=None):
+    """D_eff from solved corrector fields (``Diffusion.cpp:60-167``).
+
+    The sum is over active cells; the divisor is the TOTAL domain cell count
+    (``Diffusion.cpp:152-158``), not the active count.
+    """
+    if n_total is None:
+        n_total = int(np.prod(active.shape))
+    return deff_integrand_sum(chi_x, chi_y, chi_z, active, dx) / n_total

@@ -1,0 +1,214 @@
+"""REV (representative elementary volume) study (counterpart of
+``openimpala_tpu/props/rev.py``).
+
+Re-design of the REV loop in ``src/props/Diffusion.cpp:317-504``: for each of
+``num_samples`` random sub-volume origins x each target size, crop the phase
+volume, solve the three periodic cell problems on the crop, integrate the
+D_eff tensor, and append a CSV row
+
+    SampleNo,SeedX,SeedY,SeedZ,REV_Size_Target,ActualSizeX,ActualSizeY,
+    ActualSizeZ,D_xx,D_yy,D_zz,D_xy,D_xz,D_yz
+
+(``Diffusion.cpp:338,485-499``).  Crops whose clipped box has longest side
+< 8 are skipped (``Diffusion.cpp:361``).  RNG: the reference seeds
+``std::mt19937(rank + 12345 + num_samples)``; both packages use
+``numpy.random.default_rng(12345 + num_samples)``, so they draw the same
+boxes.
+
+Same-size crops are independent; ``batch=True`` stacks them and runs the
+three direction solves per crop as lanes of one batched PCG
+(``solve/batched.py``).  The default ``batch="auto"`` decides PER
+SAME-SHAPE GROUP: lockstep lanes pay while a single crop underfills the
+card; a large crop goes to the sequential multigrid solver.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from .effective_diffusivity import effective_diffusivity
+
+
+@dataclasses.dataclass
+class RevSample:
+    sample_no: int
+    seed: tuple
+    size_target: int
+    actual_size: tuple
+    deff: np.ndarray  # (3,3)
+    converged: bool
+
+
+CSV_HEADER = (
+    "SampleNo,SeedX,SeedY,SeedZ,REV_Size_Target,ActualSizeX,ActualSizeY,"
+    "ActualSizeZ,D_xx,D_yy,D_zz,D_xy,D_xz,D_yz"
+)
+
+
+def csv_row(s: RevSample) -> str:
+    d = s.deff
+    vals = [d[0, 0], d[1, 1], d[2, 2], d[0, 1], d[0, 2], d[1, 2]]
+    return (
+        f"{s.sample_no},{s.seed[0]},{s.seed[1]},{s.seed[2]},{s.size_target},"
+        f"{s.actual_size[0]},{s.actual_size[1]},{s.actual_size[2]},"
+        + ",".join(f"{v:.8f}" for v in vals)
+    )
+
+
+def _draw_samples(phase, sizes, num_samples, rng, verbose):
+    """Random crop boxes: origin per axis uniform in [0, N-size]
+    (Diffusion.cpp:344-357), clipped, longside >= 8 (Diffusion.cpp:361)."""
+    shape = phase.shape
+    boxes = []
+    for s_idx in range(int(num_samples)):
+        for size in sizes:
+            size = int(size)
+            seed = []
+            for d in range(3):
+                hi = shape[d] - size
+                seed.append(0 if hi < 0 else int(rng.integers(0, hi + 1)))
+            lo = np.array(seed)
+            hi = np.minimum(lo + size, np.array(shape))
+            actual = tuple(int(h - l) for l, h in zip(lo, hi))
+            if min(1 if a == 0 else a for a in actual) == 0 or max(actual) < 8:
+                if verbose:
+                    print(f"  REV sample {s_idx+1} size {size}: "
+                          "skipped (small box)")
+                continue
+            boxes.append((s_idx + 1, size, tuple(int(v) for v in lo), actual))
+    return boxes
+
+
+# auto-batch threshold, in cells per crop.  The value is the JAX package's
+# (kept so that both packages route the same groups the same way); where
+# the crossover between the batched and the sequential solver lies on an
+# H100 has not been measured
+AUTO_BATCH_MAX_CELLS = 96 ** 3
+
+
+def _resolve_batch(batch, actual, n_group: int,
+                   solve_kwargs=None, method: str = "cg",
+                   precond: str = "auto") -> bool:
+    """Per-group policy for ``batch="auto"``: batch only when there is more
+    than one same-shape crop and each crop is small.  Callers requesting
+    the exact float64 path (``inner_dtype=None``), a non-CG Krylov method,
+    or an explicit preconditioner stay on the sequential solver: the
+    batched solver hard-codes CG + Chebyshev, so "auto" must not silently
+    override validated user configuration."""
+    if isinstance(batch, str) and batch != "auto":
+        # library callers may pass the config string through unconverted;
+        # bool("false") is True, so parse the accepted tokens
+        batch = batch.strip().lower() in ("true", "1", "yes", "on")
+    if batch == "auto":
+        if solve_kwargs and solve_kwargs.get("inner_dtype", "f32") is None:
+            return False
+        if str(method).lower() not in ("cg", "pcg") or precond != "auto":
+            return False
+        return n_group > 1 and math.prod(actual) <= AUTO_BATCH_MAX_CELLS
+    return bool(batch)
+
+
+def _crop(phase, lo, actual):
+    return phase[lo[0]:lo[0] + actual[0], lo[1]:lo[1] + actual[1],
+                 lo[2]:lo[2] + actual[2]]
+
+
+def rev_study(
+    phase: np.ndarray,
+    phase_id: int,
+    sizes,
+    num_samples: int = 3,
+    eps: float = 1e-9,
+    maxiter: int = 20000,
+    method: str = "cg",
+    precond: str = "auto",
+    rng=None,
+    csv_path: str | None = None,
+    verbose: int = 0,
+    batch: bool | str = "auto",
+    plotfile_dir: str | None = None,
+    **solve_kwargs,
+):
+    """Run the study; returns a list of RevSample and optionally streams a
+    CSV (flushed row by row like the reference, ``Diffusion.cpp:498``, so
+    partial studies survive a crash).
+
+    ``batch``: ``True`` groups same-shape crops and solves each group's
+    three cell problems as lanes of one batched program
+    (``solve/batched.py``).  ``False`` runs the sequential multigrid solver
+    per crop.  ``"auto"`` (default) decides per same-shape group by crop
+    size (``AUTO_BATCH_MAX_CELLS``).  ``device`` (among ``solve_kwargs``):
+    None means CUDA, ``"cpu"`` the CPU.  ``plotfile_dir`` (per-sample chi
+    snapshots) needs the volume writers, which are not ported.
+    """
+    if plotfile_dir is not None:
+        raise NotImplementedError(
+            "plotfile_dir needs io/writers.py, which is not ported")
+    phase = np.asarray(phase)
+    if rng is None:
+        rng = np.random.default_rng(12345 + int(num_samples))
+    boxes = _draw_samples(phase, sizes, num_samples, rng, verbose)
+
+    groups: dict[tuple, list] = {}
+    for idx, (s_no, size, lo, actual) in enumerate(boxes):
+        groups.setdefault(actual, []).append(idx)
+
+    results = {}
+    for actual, idxs in groups.items():
+        if _resolve_batch(batch, actual, len(idxs), solve_kwargs,
+                          method=method, precond=precond):
+            from ..solve.batched import batched_deff
+
+            crops = np.stack([_crop(phase, boxes[i][2], actual)
+                              for i in idxs])
+            # the batched solver has its own preconditioner (Chebyshev),
+            # so only the kwargs it understands are forwarded
+            bkw = {k: v for k, v in solve_kwargs.items() if k in (
+                "dx", "group_size", "budget_bytes", "inner_dtype",
+                "outer_dtype", "max_refine_rounds", "inner_round_cap",
+                "cheby_degree", "device")}
+            if bkw.get("inner_dtype", "f32") is None:
+                # explicit batch=True + pure-f64 request: the batched solver
+                # always refines, so run its Krylov in f64 directly
+                bkw["inner_dtype"] = torch.float64
+            deffs, convs = batched_deff(crops, phase_id, eps=eps,
+                                        maxiter=maxiter, **bkw)
+            for j, i in enumerate(idxs):
+                d = deffs[j] if convs[j] else np.full((3, 3), math.nan)
+                results[i] = (d, bool(convs[j]))
+            continue
+        for i in idxs:
+            res = effective_diffusivity(
+                _crop(phase, boxes[i][2], actual), phase_id, eps=eps,
+                maxiter=maxiter, method=method, precond=precond,
+                verbose=max(0, verbose - 1), **solve_kwargs,
+            )
+            d = res.deff if res.converged else np.full((3, 3), math.nan)
+            results[i] = (np.asarray(d), res.converged)
+
+    out = []
+    fh = open(csv_path, "w") if csv_path else None
+    if fh:
+        fh.write(CSV_HEADER + "\n")
+        fh.flush()
+    try:
+        for i, (s_no, size, lo, actual) in enumerate(boxes):
+            deff, conv = results[i]
+            sample = RevSample(sample_no=s_no, seed=lo, size_target=size,
+                               actual_size=actual, deff=np.asarray(deff),
+                               converged=conv)
+            out.append(sample)
+            if verbose:
+                print(f"  REV sample {s_no} size {size}: "
+                      f"D_xx={deff[0,0]:.6f} converged={conv}")
+            if fh:
+                fh.write(csv_row(sample) + "\n")
+                fh.flush()
+    finally:
+        if fh:
+            fh.close()
+    return out

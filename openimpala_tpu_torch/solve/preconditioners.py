@@ -1,7 +1,7 @@
-"""Preconditioners of the main path (counterpart of
-``openimpala_tpu/solve/preconditioners.py``): identity, Jacobi, and the
-Galerkin multigrid V-cycle with piecewise-constant transfers and a
-Chebyshev coarse solve.
+"""Preconditioners of the main paths (counterpart of
+``openimpala_tpu/solve/preconditioners.py``): identity, Jacobi, the
+Chebyshev polynomial, and the Galerkin multigrid V-cycle with
+piecewise-constant transfers and a Chebyshev coarse solve.
 
 Each class is a frozen dataclass holding tensors; ``__call__`` applies
 M^{-1} r.  Nothing here reads a device value back to the host, so a
@@ -9,8 +9,7 @@ V-cycle queues its work without a synchronisation.
 
 Not ported yet (they raise ``NotImplementedError``): trilinear transfers
 (``transfer="tri"``), the W-cycle (``cycle="w"``), the Chebyshev smoother
-(``smoother="cheby"``), ``ChebyshevPreconditioner`` and the rediscretised
-``MultigridPreconditioner``.
+(``smoother="cheby"``) and the rediscretised ``MultigridPreconditioner``.
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ from ..ops.stencil import (
     _on_cpu,
     _zero,
     apply_code,
+    apply_restricted,
     decode_code,
     residual_restrict,
     residual_restricted,
@@ -57,6 +57,83 @@ class JacobiPreconditioner:
         diag = self.diag.expand(r.shape).to(r.dtype)
         safe = torch.where(diag > 0, diag, 1.0)
         return torch.where(self.free, r / safe, _zero(r))
+
+
+@dataclasses.dataclass(frozen=True)
+class ChebyshevPreconditioner:
+    """Fixed-degree Chebyshev polynomial preconditioner on the
+    Jacobi-scaled operator D^{-1}A (PETSc/hypre-style recurrence).
+
+    M^{-1} = p_d(D^{-1}A) D^{-1} is a fixed SPD polynomial operator, so CG
+    remains valid.  A Chebyshev step is one matvec and a few AXPYs with no
+    reduction, so the polynomial replaces about ``degree`` outer CG
+    iterations and their dot products.
+
+    Spectrum interval: lambda_max(D^{-1}A) <= 2 by Gershgorin for both
+    masked operators; ``hi`` is a slight over-estimate of that bound,
+    ``lo = hi/ratio``: modes below ``lo`` are left for the outer CG.
+
+    ``diag`` and ``free`` are (X, Y, Z), or (B, X, Y, Z) for a batch of
+    systems that share ``w`` and ``periodic``; ``r`` has their shape.  The
+    operator goes through ``apply_restricted``: kernel K5 (one volume) or
+    K4 (a batch) on the card.
+    """
+
+    diag: torch.Tensor
+    free: torch.Tensor
+    w: tuple
+    periodic: tuple
+    degree: int = 8
+    hi: float = 2.0
+    ratio: float = 24.0
+
+    @classmethod
+    def from_system(cls, system, degree: int = 8, hi: float = 2.0,
+                    ratio: float = 24.0):
+        free = system.free
+        return cls(diag=system.diag.expand(free.shape)
+                   .to(system.r0_b.dtype).contiguous(),
+                   free=free, w=system.w, periodic=system.periodic,
+                   degree=int(degree), hi=float(hi), ratio=float(ratio))
+
+    def _jacobi_parts(self, dtype):
+        """(where D^{-1} acts, the divisor there) for ``_minv``."""
+        return (self.free & (self.diag > 0),
+                torch.where(self.diag > 0, self.diag, 1.0).to(dtype))
+
+    def _minv(self, v, parts=None):
+        """D^{-1} v: ``(free & diag > 0) ? v / diag : 0``."""
+        ok, safe = parts or self._jacobi_parts(v.dtype)
+        return torch.where(ok, v / safe, _zero(v))
+
+    def _apply_A(self, v):
+        return apply_restricted(v, self.diag, self.free, self.w,
+                                self.periodic)
+
+    def __call__(self, r):
+        # the scalar recurrence (rho) runs on the host in the working
+        # dtype, the values the JAX loop carries on the device, so no
+        # device value is read back
+        lo = self.hi / self.ratio
+        theta = 0.5 * (self.hi + lo)
+        delta = 0.5 * (self.hi - lo)
+        sigma = theta / delta
+        ft = _NP_FLOAT[r.dtype]
+        parts = self._jacobi_parts(r.dtype)  # once per application
+        d = self._minv(r, parts) * float(ft(1.0 / theta))
+        z = d
+        res = r
+        two_sigma = ft(2.0 * sigma)
+        two_over_delta = ft(2.0 / delta)
+        rho = ft(1.0 / sigma)
+        for _ in range(1, self.degree):
+            res = res - self._apply_A(d)
+            rho_new = ft(1.0) / (two_sigma - rho)
+            d = (float(rho_new * rho) * d
+                 + float(rho_new * two_over_delta) * self._minv(res, parts))
+            z = z + d
+            rho = rho_new
+        return z
 
 
 @dataclasses.dataclass(frozen=True)

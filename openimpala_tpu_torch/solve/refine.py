@@ -20,7 +20,11 @@ import torch
 
 from ..utils.profiling import phase_timer
 from .cg import SolveResult, cg
-from .preconditioners import GalerkinMGPreconditioner, JacobiPreconditioner
+from .preconditioners import (
+    ChebyshevPreconditioner,
+    GalerkinMGPreconditioner,
+    JacobiPreconditioner,
+)
 from .sa import SAMGPreconditioner
 
 
@@ -63,8 +67,12 @@ def _accumulate(z_total, scale, z):
 
 def make_precond(sys_, precond, opts=None):
     """``"auto"`` (= ``"gmg"``), ``"gmg"``, ``"sa"`` (= ``"samg"``),
-    ``"jacobi"`` or ``"none"``; any other name raises."""
+    ``"cheby"`` (= ``"chebyshev"``), ``"jacobi"`` or ``"none"``; any other
+    name raises.  A preconditioner that is already built (a callable
+    ``r -> z``) is returned as it is."""
     opts = opts or {}
+    if precond is not None and not isinstance(precond, str):
+        return precond
     if precond == "auto":
         precond = "gmg"
     if precond is None or precond == "none":
@@ -75,7 +83,9 @@ def make_precond(sys_, precond, opts=None):
         return GalerkinMGPreconditioner.from_system(sys_, **opts)
     if precond in ("sa", "samg"):
         return SAMGPreconditioner.from_system(sys_, **opts)
-    if precond in ("cheby", "chebyshev", "mg"):
+    if precond in ("cheby", "chebyshev"):
+        return ChebyshevPreconditioner.from_system(sys_, **opts)
+    if precond == "mg":
         raise NotImplementedError(
             f"preconditioner {precond!r} is not ported yet")
     raise ValueError(f"unknown preconditioner: {precond!r}")

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time of the port's flow-through solve goes on one NVIDIA GPU.
+"""Where the time of the port's solves goes on one NVIDIA GPU.
 
     python3 -m scripts.profile_torch_solve [--n 512] [--precond sa]
         [--precond-opts '{"cycle": "w", "coeff_dtype": "bfloat16"}']
+        [--entry tortuosity|deff|rev]
 
 (from the repo root)
 
-Runs ``openimpala_tpu_torch.tortuosity`` once to build the kernels and warm
+Runs one entry point of ``openimpala_tpu_torch`` (``tortuosity`` along X,
+``effective_diffusivity``, or ``rev_study`` with 64 crops of 64^3) once to
+build the kernels and warm
 the allocator, then once more under ``torch.profiler`` (CPU + CUDA
 activities), and prints: the per-step wall seconds, the device busy time
 (sum of kernel and copy durations, one stream) against the wall time of
 the call and of its solve step, the device time of the hand-written
-kernels (K1, K2, K3) against PyTorch's own kernels, and the top kernels by
+kernels (K1 to K5) against PyTorch's own kernels, and the top kernels by
 device time.  The last line is one JSON object with those numbers.
 """
 
@@ -26,11 +29,12 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from openimpala_tpu_torch import tortuosity
+from openimpala_tpu_torch import (
+    effective_diffusivity, rev_study, tortuosity)
 from openimpala_tpu_torch.utils.sample_data import make_blobs
 
-HAND = ("k1_planes", "k1_restrict", "k2_cells", "k3_cells",
-        "reduce_partials")
+HAND = ("k1_planes", "k1_restrict", "k2_cells", "k3_cells", "k4_planes",
+        "k5_stream", "reduce_partials")
 
 
 def _device_us(evt) -> float:
@@ -49,6 +53,11 @@ def main(argv=None):
     ap.add_argument("--precond-opts", default="{}",
                     help="JSON options of the preconditioner; a "
                          "coeff_dtype is named as a torch dtype")
+    ap.add_argument("--entry", default="tortuosity",
+                    choices=("tortuosity", "deff", "rev"),
+                    help="entry point: tortuosity (X), deff "
+                         "(effective_diffusivity) or rev (rev_study, 64 "
+                         "crops of 64^3, the batched solver)")
     args = ap.parse_args(argv)
     opts = json.loads(args.precond_opts)
     if isinstance(opts.get("coeff_dtype"), str):
@@ -63,18 +72,29 @@ def main(argv=None):
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     vol = make_blobs(args.n, 0.4, 0)
-    tortuosity(vol, 1, "X", **solve)  # build kernels, warm up
+
+    def run(timings=None):
+        if args.entry == "tortuosity":
+            r = tortuosity(vol, 1, "X", timings=timings, **solve)
+            return r.iterations, f"tau={r.value!r}"
+        if args.entry == "deff":
+            r = effective_diffusivity(vol, 1, timings=timings, **solve)
+            return sum(r.iterations), f"D_xx={float(r.deff[0, 0])!r}"
+        out = rev_study(vol, 1, sizes=(64,), num_samples=64, device="cuda")
+        return 0, f"converged={sum(s.converged for s in out)}/{len(out)}"
+
+    run()  # build kernels, warm up
 
     timings = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         t0 = time.perf_counter()
-        res = tortuosity(vol, 1, "X", timings=timings, **solve)
+        iterations, what = run(timings)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(f"precond={args.precond} opts={args.precond_opts} "
-          f"tau={res.value!r} iterations={res.iterations} wall_s={wall:.3f} "
-          "(under the profiler)")
+    print(f"entry={args.entry} precond={args.precond} "
+          f"opts={args.precond_opts} {what} iterations={iterations} "
+          f"wall_s={wall:.3f} (under the profiler)")
     print("step_s " + json.dumps({k: round(v, 4) for k, v in timings.items()}))
 
     rows = []
@@ -98,8 +118,9 @@ def main(argv=None):
         print(f"  {us / 1e3:9.2f} ms  {count:7d}  {us / count:9.2f} us  "
               f"{key[:100]}")
     print(json.dumps({
-        "card": card, "n": args.n, "precond": args.precond,
-        "precond_opts": args.precond_opts, "iterations": res.iterations,
+        "card": card, "n": args.n, "entry": args.entry,
+        "precond": args.precond,
+        "precond_opts": args.precond_opts, "iterations": iterations,
         "wall_s": wall, "steps_s": timings, "device_busy_ms": busy_ms,
         "hand_kernels_ms": hand_ms, "torch_kernels_ms": busy_ms - hand_ms,
         "top": [{"name": k[:100], "launches": c, "ms": u / 1e3}

@@ -1,5 +1,5 @@
-"""PyTorch port on the card: kernels K1, K2 and K3 against their plain
-PyTorch versions at small shapes, and the slice on the GPU against the CPU.
+"""PyTorch port on the card: kernels K1 to K5 against their plain PyTorch
+versions at small shapes, and the entry points on the GPU against the CPU.
 
 Marked ``cuda``; each test skips without a CUDA device.  Imports no JAX, so
 it runs where only PyTorch is installed:
@@ -13,7 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from openimpala_tpu_torch import tortuosity  # noqa: E402
+from openimpala_tpu_torch import (  # noqa: E402
+    effective_diffusivity, rev_study, tortuosity)
 from openimpala_tpu_torch.ops import offset as po  # noqa: E402
 from openimpala_tpu_torch.ops import offset_cuda as oc  # noqa: E402
 from openimpala_tpu_torch.ops import stencil as st  # noqa: E402
@@ -216,3 +217,132 @@ def test_tortuosity_gpu_matches_cpu(cuda, precond):
     assert abs(gpu.value - cpu.value) <= 1e-6 * abs(cpu.value)
     assert gpu.active_vf == cpu.active_vf
     assert abs(gpu.iterations - cpu.iterations) <= 1
+
+
+def _restricted_case(shape, lanes, diag_form, dtype, device, seed=5):
+    """(x, diag, free) for the explicit operator: ``lanes`` 0 means one
+    unbatched volume."""
+    full = ((lanes,) if lanes else ()) + tuple(shape)
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(full, generator=g, dtype=dtype, device=device)
+    free = torch.rand(full, generator=g, device=device) < 0.7
+    if diag_form == "scalar":
+        diag = torch.full((), 6.5, dtype=dtype, device=device)
+    elif diag_form == "lane":
+        diag = 6.0 + torch.rand((lanes,), generator=g, dtype=dtype,
+                                device=device)
+    else:
+        diag = 6.0 + torch.rand(full, generator=g, dtype=dtype, device=device)
+    return x, diag, free
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("periodic", [(False, False, False),
+                                      (True, True, True),
+                                      (True, False, True)])
+@pytest.mark.parametrize("shape,lanes,diag_form", [
+    ((20, 18, 16), 0, "full"), ((21, 17, 13), 0, "scalar"),
+    ((9, 7, 5), 3, "full"), ((9, 7, 5), 3, "lane"), ((9, 7, 5), 1, "scalar"),
+    ((1, 2, 3), 2, "full"), ((2, 1, 1), 0, "full"), ((33, 9, 40), 5, "lane"),
+])
+def test_k4_matches_plain(cuda, shape, lanes, diag_form, periodic, dtype):
+    w = (1.0, 4.0, 0.25)
+    x, diag, free = _restricted_case(shape, lanes, diag_form, dtype, cuda)
+    sc.reset_counts()
+    out = sc.k4_matvec(x, diag, free, w, periodic)
+    out2, dot = sc.k4_matvec(x, diag, free.to(torch.int8), w, periodic,
+                             with_dot=True)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    assert sc.launches == {f"k4_matvec_{tag}": 1, f"k4_matvec_dot_{tag}": 1}
+    want, wdot = st.apply_restricted_with_dot_plain(x, diag, free, w,
+                                                    periodic)
+    torch.testing.assert_close(out, want, **TOL[dtype])
+    assert torch.equal(out, out2)
+    assert dot.shape == wdot.shape
+    torch.testing.assert_close(dot, wdot, rtol=1e-4, atol=1e-4)
+    assert torch.equal(dot, sc.k4_matvec(x, diag, free, w, periodic,
+                                         with_dot=True)[1])
+    if lanes:  # the wrap never crosses a lane
+        for b in range(lanes):
+            db = diag if diag_form == "scalar" else diag[b]
+            torch.testing.assert_close(
+                sc.k4_matvec(x[b].contiguous(), db.contiguous(),
+                             free[b].contiguous(), w, periodic),
+                out[b], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("periodic", [(False, False, False),
+                                      (True, True, True),
+                                      (False, True, False)])
+@pytest.mark.parametrize("shape", [(20, 18, 16), (21, 17, 13), (40, 9, 33),
+                                   (1, 2, 3), (2, 1, 1), (3, 40, 70)])
+def test_k5_matches_plain_and_k4(cuda, shape, periodic, dtype):
+    w = (1.0, 0.25, 4.0)
+    x, diag, free = _restricted_case(shape, 0, "full", dtype, cuda)
+    sc.reset_counts()
+    out = st.apply_restricted(x, diag, free, w, periodic)  # the dispatcher
+    tag = "f32" if dtype == torch.float32 else "f64"
+    assert sc.launches == {f"k5_matvec_{tag}": 1} and not sc.plain_on_cuda
+    torch.testing.assert_close(
+        out, st.apply_restricted_plain(x, diag, free, w, periodic),
+        **TOL[dtype])
+    torch.testing.assert_close(out, sc.k4_matvec(x, diag, free, w, periodic),
+                               **TOL[dtype])
+    # with the dot, a scalar diag or a batch the dispatcher takes K4
+    st.apply_restricted_with_dot(x, diag, free, w, periodic)
+    st.apply_restricted(x, diag.flatten()[0].clone(), free, w, periodic)
+    st.apply_restricted(x[None], diag[None], free[None], w, periodic)
+    assert sc.launches[f"k4_matvec_dot_{tag}"] == 1
+    assert sc.launches[f"k4_matvec_{tag}"] == 3  # one above, two here
+    assert sc.launches[f"k5_matvec_{tag}"] == 1
+
+
+def test_k4_k5_refuse_bad_inputs(cuda):
+    x = torch.zeros((2, 4, 4, 4), device=cuda)
+    free = torch.ones((2, 4, 4, 4), dtype=torch.bool, device=cuda)
+    w, per = (1.0,) * 3, (True,) * 3
+    with pytest.raises(ValueError, match="diag shape"):
+        sc.k4_matvec(x, torch.zeros(3, device=cuda), free, w, per)
+    with pytest.raises(ValueError, match="diag must be torch.float32"):
+        sc.k4_matvec(x, torch.zeros((), dtype=torch.float64, device=cuda),
+                     free, w, per)
+    with pytest.raises(ValueError, match="bool or int8"):
+        sc.k4_matvec(x, torch.zeros((), device=cuda), free.float(), w, per)
+    with pytest.raises(ValueError, match="contiguous"):
+        sc.k4_matvec(x.transpose(1, 3), torch.zeros((), device=cuda),
+                     free.transpose(1, 3), w, per)
+    with pytest.raises(ValueError, match="3-D"):
+        sc.k5_matvec_stream(x, x, free, w, per)
+    with pytest.raises(ValueError, match="diag"):
+        sc.k5_matvec_stream(x[0], torch.zeros((), device=cuda), free[0], w,
+                            per)
+
+
+def test_effective_diffusivity_gpu_matches_cpu(cuda):
+    vol = (np.random.default_rng(7).random((20, 18, 16)) < 0.65).astype(
+        np.int32)
+    for precond, kernel in (("auto", "k2_sweep_f32"),
+                            ("cheby", "k5_matvec_f32")):
+        sc.reset_counts()
+        gpu = effective_diffusivity(vol, 1, precond=precond, device=cuda)
+        assert sc.launches[kernel] > 0 and not sc.plain_on_cuda
+        cpu = effective_diffusivity(vol, 1, precond=precond, device="cpu")
+        assert gpu.converged and cpu.converged
+        np.testing.assert_allclose(gpu.deff, cpu.deff, rtol=0, atol=1e-6)
+        for g, c in zip(gpu.iterations, cpu.iterations):
+            assert abs(g - c) <= 1
+
+
+def test_rev_study_gpu_matches_cpu(cuda):
+    vol = (np.random.default_rng(8).random((24, 24, 24)) < 0.65).astype(
+        np.int32)
+    sc.reset_counts()
+    gpu = rev_study(vol, 1, sizes=(12,), num_samples=3, device=cuda)
+    assert sc.launches["k4_matvec_f32"] >= 11 * sc.launches[
+        "k4_matvec_dot_f32"] > 0
+    assert sc.launches["k4_matvec_f64"] > 0 and not sc.plain_on_cuda
+    cpu = rev_study(vol, 1, sizes=(12,), num_samples=3, device="cpu")
+    for g, c in zip(gpu, cpu):
+        assert g.converged and c.converged and g.seed == c.seed
+        np.testing.assert_allclose(g.deff, c.deff, rtol=0, atol=1e-6)

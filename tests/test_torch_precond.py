@@ -137,9 +137,11 @@ def test_unported_options_raise():
     for opts in ({"transfer": "tri"}, {"cycle": "w"}, {"smoother": "cheby"}):
         with pytest.raises(NotImplementedError):
             PP.GalerkinMGPreconditioner.from_system(ps, **opts)
-    for name in ("cheby", "mg"):
-        with pytest.raises(NotImplementedError):
-            make_precond(ps, name)
+    with pytest.raises(NotImplementedError):
+        make_precond(ps, "mg")
+    cheby = make_precond(ps, "cheby", {"degree": 4})
+    assert isinstance(cheby, PP.ChebyshevPreconditioner)
+    assert cheby.degree == 4 and cheby.diag.shape == ps.code.shape
     with pytest.raises(ValueError):
         make_precond(ps, "bogus")
     assert isinstance(make_precond(ps, "auto"), PP.GalerkinMGPreconditioner)
