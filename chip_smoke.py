@@ -12,6 +12,11 @@ Phases (each failure exits non-zero and prints no result line):
                in float32 and float64 and both K2 modes, held against their
                plain PyTorch versions on odd, restrict-eligible, periodic and
                anisotropic systems; the fused dot must repeat bit for bit.
+               K1 again at the seams of its two routes (``K1_SEAMS``): the
+               general route on extents of 1 to 3 and on rows that are not
+               whole 16-byte vectors, the stream route on ragged tiles,
+               short and uneven X runs, periodic seams and anisotropic
+               packing, each case required to take the route it names.
                Every K3 mode (apply, the nearest-neighbour prefix apply,
                resid, sweep) with float32 and float64 ``x`` and full-
                precision and bfloat16 coefficients, on synthetic 33- and
@@ -44,8 +49,9 @@ Phases (each failure exits non-zero and prints no result line):
                counters are zeroed just before each call and read just
                after; each path must launch its kernels (the matvec+dot at
                least once per PCG iteration) while no plain version sees a
-               CUDA tensor, and the ``sa`` and ``cheby`` paths' tau must
-               agree with the default path's to 1e-6;
+               CUDA tensor, every K1 launch at the path's fine extent must
+               have taken the stream route, and the ``sa`` and ``cheby``
+               paths' tau must agree with the default path's to 1e-6;
 4. parity    - the same call at 64^3 on the GPU and on the CPU:
                ``tortuosity`` with the default and with the ``sa``
                preconditioner, and ``effective_diffusivity``;
@@ -55,7 +61,9 @@ Phases (each failure exits non-zero and prints no result line):
                the run made at that extent): max error, the kernel's time
                from a CUDA graph (``ms``) and back to back from the host
                (``ms_eager``), the plain version's time, the
-               compulsory-bytes bound and launches per PCG iteration.  K5
+               compulsory-bytes bound and launches per PCG iteration; K1
+               with the route it took and the general route's time on the
+               same input beside it (timed only).  K5
                is timed on the ``cheby`` path's own (diag, free) with K4
                (full diag, scalar diag, with the dot) beside it on the same
                input, and the two again side by side at 512^3 on the
@@ -80,6 +88,7 @@ import numpy as np
 import torch
 
 from openimpala_tpu_torch.ops.offset_cuda import k3_cost
+from openimpala_tpu_torch.ops.stencil_cuda import k1_cost
 from openimpala_tpu_torch.utils.sample_data import make_blobs
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 and f64
@@ -114,14 +123,20 @@ K5_TPU = "openimpala_tpu/ops/stencil_pallas.py:297"
 # compulsory bytes and flops per (fine) cell of each kernel on the main
 # paths; K3's depend on the taps of the level the run built (k3_cost); K4
 # and K5 read a full-array diag on their paths (x, diag, free, out)
+def _k1(mode, dtype):
+    """K1's table entry, its bytes and flops per cell from ``k1_cost``."""
+    nbytes, flops = k1_cost(mode, (1, 1, 1), dtype)
+    return (K1_SRC, K1_TPU, nbytes, flops, dtype)
+
+
 PATH_KERNELS = {
     # name: (source, replaces, bytes/cell, flops/cell, dtype)
-    "k1_matvec_dot_f32": (K1_SRC, K1_TPU, 10.0, 12, torch.float32),
-    "k1_matvec_f32": (K1_SRC, K1_TPU, 10.0, 10, torch.float32),
-    "k1_resid_f32": (K1_SRC, K1_TPU, 14.0, 11, torch.float32),
-    "k1_sweep_f32": (K1_SRC, K1_TPU, 14.0, 14, torch.float32),
-    "k1_restrict_f32": (K1_SRC, K1_TPU, 10.5, 12, torch.float32),
-    "k1_matvec_f64": (K1_SRC, K1_TPU, 18.0, 10, torch.float64),
+    "k1_matvec_dot_f32": _k1("matvec_dot", torch.float32),
+    "k1_matvec_f32": _k1("matvec", torch.float32),
+    "k1_resid_f32": _k1("resid", torch.float32),
+    "k1_sweep_f32": _k1("sweep", torch.float32),
+    "k1_restrict_f32": _k1("restrict", torch.float32),
+    "k1_matvec_f64": _k1("matvec", torch.float64),
     "k2_matvec_f32": (K2_SRC, K2_TPU, 24.0, 16, torch.float32),
     "k2_sweep_f32": (K2_SRC, K2_TPU, 28.0, 20, torch.float32),
     "k3_apply_f32": (K3_SRC, K3_TPU, None, None, torch.float32),
@@ -264,14 +279,17 @@ class Checker:
         require(ok, f"{name} [{case}]: max abs err {err:.3e} beyond "
                     f"rtol={rtol} atol={atol}")
 
-    def dot(self, name, got, want, dtype, case):
+    def dot(self, name, got, want, dtype, case, floor=1e-300):
         """The fused dot (0-d, or one per lane) against the plain sum: the
-        largest relative difference."""
+        largest relative difference.  ``floor``: the size of the terms the
+        dot sums, where they cancel (an axis of extent 1 or 2 that wraps
+        onto itself makes the operator singular and <x, Ax> pure
+        rounding); the difference is then taken relative to it."""
         require(got.shape == want.shape,
                 f"{name} [{case}]: dot shape {tuple(got.shape)} != "
                 f"{tuple(want.shape)}")
         g, w = got.double(), want.double()
-        rel = float(((g - w).abs() / w.abs().clamp_min(1e-300)).max())
+        rel = float(((g - w).abs() / w.abs().clamp_min(floor)).max())
         self.max_err[name + ".dot_rel"] = max(
             self.max_err.get(name + ".dot_rel", 0.0), rel)
         require(rel <= DOT_RTOL[dtype],
@@ -283,9 +301,18 @@ def _tag(dtype):
     return "f32" if dtype == torch.float32 else "f64"
 
 
-def check_k1(chk, system, gen, dtype, case, modes=None):
+def check_k1(chk, system, gen, dtype, case, modes=None, cancelling=False,
+             **plan):
+    """Every K1 mode in ``modes`` on one system against the plain forms;
+    ``plan`` (route, run, rows) overrides the launcher's own plan.
+    ``cancelling``: the system is singular (tiny wrapped extents), so the
+    dot is held relative to its diagonal terms, sum(d x^2)."""
+    import functools
+
     from openimpala_tpu_torch.ops import stencil as st
     from openimpala_tpu_torch.ops import stencil_cuda as sc
+
+    k1 = functools.partial(sc.k1_stencil, **plan)
 
     code, w, per = system.code, system.w, system.periodic
     free = system.free
@@ -299,32 +326,33 @@ def check_k1(chk, system, gen, dtype, case, modes=None):
     even = all(s % 2 == 0 for s in shape)
     modes = modes or ("matvec_dot", "matvec", "resid", "sweep", "restrict")
     if "matvec_dot" in modes:
-        out, dot = sc.k1_stencil("matvec", x, None, code, w, per,
-                                 with_dot=True)
-        out2, dot2 = sc.k1_stencil("matvec", x, None, code, w, per,
-                                   with_dot=True)
+        out, dot = k1("matvec", x, None, code, w, per, with_dot=True)
+        out2, dot2 = k1("matvec", x, None, code, w, per, with_dot=True)
         require(torch.equal(out, out2) and torch.equal(dot, dot2),
                 f"k1_matvec_dot_{tag} [{case}]: two runs differ")
         want, wdot = st.apply_code_with_dot_plain(x, code, w, per)
         chk.close(f"k1_matvec_dot_{tag}", out, want, dtype, case)
-        chk.dot(f"k1_matvec_dot_{tag}", dot, wdot, dtype, case)
+        floor = 1e-300
+        if cancelling:
+            floor += float((x.double() ** 2).sum()) * 2.0 * sum(w)
+        chk.dot(f"k1_matvec_dot_{tag}", dot, wdot, dtype, case, floor=floor)
     if "matvec" in modes:
         chk.close(f"k1_matvec_{tag}",
-                  sc.k1_stencil("matvec", x, None, code, w, per),
+                  k1("matvec", x, None, code, w, per),
                   st.apply_code_plain(x, code, w, per), dtype, case)
     if "resid" in modes:
         chk.close(f"k1_resid_{tag}",
-                  sc.k1_stencil("resid", x, r, code, w, per),
+                  k1("resid", x, r, code, w, per),
                   st.residual_restricted_plain(x, r, code, w, per), dtype,
                   case)
     if "sweep" in modes:
         chk.close(f"k1_sweep_{tag}",
-                  sc.k1_stencil("sweep", x, r, code, w, per, omega=0.9),
+                  k1("sweep", x, r, code, w, per, omega=0.9),
                   st.smooth_sweep_plain(x, r, code, w, per, 0.9), dtype,
                   case)
     if "restrict" in modes and even:
         chk.close(f"k1_restrict_{tag}",
-                  sc.k1_stencil("restrict", x, r, code, w, per),
+                  k1("restrict", x, r, code, w, per),
                   st.residual_restrict_plain(x, r, code, w, per), dtype,
                   case)
     return x, r
@@ -470,6 +498,88 @@ def phase_kernels_restricted(chk, gen, dev):
                     f"diag {form} w {w}")
 
 
+# K1 at the seams of its two routes: (case, shape, kind, dx, overrides of
+# the launcher's plan).  The general route on extents of 1 to 3 and on rows
+# that are not whole 16-byte vectors; the stream route (forced, the
+# volumes being too small to be sent there by the rule) on a ragged last
+# tile along Z and along Y, fewer rows than a tile, X shorter than a run,
+# X = 4 runs + 1, odd periodic extents, anisotropic packing, one row per
+# thread on clamped axes and two on periodic ones.
+K1_SEAMS = [
+    ("1x1x1 periodic", (1, 1, 1), "cell", (1, 1, 1), {}),
+    ("2x2x2 periodic", (2, 2, 2), "cell", (1, 1, 1), {}),
+    ("3x2x1 periodic", (3, 2, 1), "cell", (1, 0.5, 2), {}),
+    ("3x2x1 clamped", (3, 2, 1), "flow", (1, 1, 1), {}),
+    ("Z = tile + 1", (16, 24, 129), "flow", (1, 1, 1), {}),
+    ("Z = tile - 1", (16, 24, 127), "cell", (1, 1, 1), {}),
+    ("one tile, X under a run", (16, 24, 128), "flow", (1, 1, 1),
+     {"route": "stream"}),
+    ("Z = tile + 4", (16, 24, 132), "flow", (1, 1, 1), {"route": "stream"}),
+    ("Z = 2 tiles - 4, periodic", (16, 24, 252), "cell", (1, 1, 1),
+     {"route": "stream"}),
+    ("Y under a tile, aniso periodic", (6, 4, 128), "cell", (1, 0.5, 2),
+     {"route": "stream"}),
+    ("X = 4 runs + 1, Z ragged", (65, 20, 516), "flow", (1, 1, 1),
+     {"route": "stream", "run": 16}),
+    ("X = 8 runs + 6", (70, 20, 516), "flow", (1, 1, 1),
+     {"route": "stream", "run": 8}),
+    ("odd periodic X and Y", (33, 17, 260), "cell", (1, 1, 1),
+     {"route": "stream", "run": 16}),
+    ("1x1 rows periodic", (1, 1, 128), "cell", (1, 1, 1),
+     {"route": "stream"}),
+    ("2x2 rows periodic", (2, 2, 128), "cell", (1, 1, 1),
+     {"route": "stream"}),
+    ("aniso 128x64x256", (128, 64, 256), "flow", (1, 0.5, 2),
+     {"route": "stream"}),
+    ("aniso periodic 64x48x256, two rows", (64, 48, 256), "cell",
+     (1, 0.5, 2), {"route": "stream", "rows": 2, "run": 22}),
+    ("clamped 64x48x256, one row", (64, 48, 256), "flow", (1, 1, 1),
+     {"route": "stream", "rows": 1, "run": 20}),
+]
+
+
+def phase_kernels_k1_seams(chk, gen, dev, rng):
+    """Every K1 mode, float32 and float64, on ``K1_SEAMS`` against the plain
+    forms; the stream route also against the general one (logged)."""
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+    from openimpala_tpu_torch.ops.stencil import (
+        make_cell_problem_system, make_tortuosity_system)
+
+    worst = 0.0
+    for case, shape, kind, dx, plan in K1_SEAMS:
+        mask = torch.from_numpy(rng.random(shape) < 0.7).to(dev)
+        for dtype in (torch.float32, torch.float64):
+            if kind == "flow":
+                system = make_tortuosity_system(mask, 0, -1.0, 1.0, dx=dx,
+                                                dtype=dtype)
+            else:
+                system = make_cell_problem_system(mask, 1, dx=dx, dtype=dtype)
+            modes = ["matvec_dot", "matvec", "resid", "sweep"]
+            if plan.get("rows", 2) == 2 and all(n % 2 == 0 for n in shape):
+                modes.append("restrict")
+            before = dict(sc.launches_route)
+            x, r = check_k1(chk, system, gen, dtype,
+                            f"seam {case} {plan}", modes=modes,
+                            cancelling=kind == "cell" and min(shape) <= 2,
+                            **plan)
+            took = {k[1] for k, v in sc.launches_route.items()
+                    if v != before.get(k, 0)}
+            want = plan.get("route", "general")
+            require(took == {want}, f"k1 seam [{case}]: took the routes "
+                                    f"{sorted(took)}, not {want}")
+            if want != "stream":
+                continue
+            code, w, per = system.code, system.w, system.periodic
+            for m in modes[1:]:  # the dot's matvec is the plain matvec
+                a = sc.k1_stencil(m, x, r, code, w, per, **plan)
+                b = sc.k1_stencil(m, x, r, code, w, per, route="general")
+                worst = max(worst, float((a.double() - b.double()).abs()
+                                         .max()))
+    torch.cuda.synchronize()
+    log(f"k1 seams: {len(K1_SEAMS)} cases x 2 dtypes; the stream route "
+        f"against the general route, largest abs difference {worst:.3e}")
+
+
 def phase_card():
     from openimpala_tpu_torch.ops import stencil_cuda as sc
 
@@ -552,13 +662,25 @@ def phase_kernels(chk, seed):
             mg = GalerkinMGPreconditioner.from_system(system)
             for li, lvl in enumerate(mg.levels):
                 check_k2(chk, lvl, gen, f"{case} level {li + 1}")
+    phase_kernels_k1_seams(chk, gen, dev, rng)
     summary = {k: {"max_abs_err": v, "cases": len(chk.cases.get(k, []))}
                for k, v in sorted(chk.max_err.items())}
     log("kernel_checks " + json.dumps(summary))
 
 
-def _log_counts(label, counts, at, plain):
+def _k1_routes():
+    """K1's launches since the last reset, by (name, route, extent)."""
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+
+    return dict(sc.launches_route_at)
+
+
+def _log_counts(label, counts, at, plain, routes=None):
     log(f"main[{label}] launches " + json.dumps(counts, sort_keys=True))
+    if routes:
+        log(f"main[{label}] k1_routes " + json.dumps(
+            {f"{k} {route} {'x'.join(map(str, shp))}": v
+             for (k, route, shp), v in sorted(routes.items())}))
     if at:
         log(f"main[{label}] k3_launches_by_extent " + json.dumps(
             {f"{k} {'x'.join(map(str, shp))}": v
@@ -580,6 +702,7 @@ def _drive_tau(label, vol, n, dx, precond):
     wall = time.perf_counter() - t0
     counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
     at = dict(sc.launches_at)  # (name, extent) -> K3 launches
+    routes = _k1_routes()
     log(f"main[{label}] {n}^3 dx={dx} precond={precond}: "
         f"tau={res.value!r} "
         f"active_vf={res.active_vf!r} iterations={res.iterations} "
@@ -589,7 +712,7 @@ def _drive_tau(label, vol, n, dx, precond):
         f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
     log(f"main[{label}] step_s " + json.dumps(
         {k: round(v, 4) for k, v in timings.items()}))
-    _log_counts(label, counts, at, plain)
+    _log_counts(label, counts, at, plain, routes)
     require(res.converged and res.flux_conserved,
             f"main[{label}]: converged={res.converged} "
             f"flux_conserved={res.flux_conserved}")
@@ -599,7 +722,7 @@ def _drive_tau(label, vol, n, dx, precond):
             f"{res.iterations} PCG iterations")
     return {"iterations": res.iterations, "counts": counts, "at": at,
             "plain": plain, "tau": res.value, "mask": res.active,
-            "wall_s": wall}
+            "wall_s": wall, "routes": routes, "fine": (n, n, n)}
 
 
 def _drive_cheby(label, vol, n, dx, precond, runs):
@@ -649,6 +772,7 @@ def _drive_deff(label, vol, n, dx, precond):
                                 device="cuda", timings=timings)
     wall = time.perf_counter() - t0
     counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
+    routes = _k1_routes()
     log(f"main[{label}] {n}^3 dx={dx} precond={precond}: "
         f"deff={res.deff.tolist()!r} volume_fraction={res.volume_fraction!r} "
         f"iterations={res.iterations} rel_res={res.rel_res!r} "
@@ -656,7 +780,7 @@ def _drive_deff(label, vol, n, dx, precond):
         f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
     log(f"main[{label}] step_s " + json.dumps(
         {k: round(v, 4) for k, v in timings.items()}))
-    _log_counts(label, counts, {}, plain)
+    _log_counts(label, counts, {}, plain, routes)
     require(res.converged and max(res.rel_res) <= 1e-9,
             f"main[{label}]: converged={res.converged} rel_res={res.rel_res}")
     require(res.deff.shape == (3, 3) and bool(np.isfinite(res.deff).all()),
@@ -672,7 +796,7 @@ def _drive_deff(label, vol, n, dx, precond):
     require(dots >= its, f"main[{label}]: K1 matvec+dot launched {dots} "
                          f"times for {its} PCG iterations")
     return {"iterations": its, "counts": counts, "at": {}, "plain": plain,
-            "wall_s": wall}
+            "wall_s": wall, "routes": routes, "fine": (n, n, n)}
 
 
 def _drive_rev(label, vol, n, dx):
@@ -763,6 +887,21 @@ def _drive_rev(label, vol, n, dx):
             "samples": samples, "size": size}
 
 
+def _require_stream_route(label, run):
+    """Where the rule sends the path's fine extent to the stream route,
+    every K1 launch at that extent must have taken it."""
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+
+    fine = run.get("fine")
+    if fine is None or sc.k1_route(fine, torch.float32) != "stream":
+        return
+    at_fine = {k: v for k, v in run["routes"].items() if k[2] == fine}
+    require(at_fine, f"main[{label}]: no K1 launch at {fine}")
+    stray = {k: v for k, v in at_fine.items() if k[1] != "stream"}
+    require(not stray, f"main[{label}]: K1 launches at the fine extent off "
+                       f"the stream route: {stray}")
+
+
 def phase_main(vol, n):
     """Drive each main path on its own: the counts are zeroed just before
     its call and read just after."""
@@ -780,6 +919,7 @@ def phase_main(vol, n):
         require(not missing, f"main[{label}]: never launched: {missing}")
         require(not run["plain"], f"main[{label}]: plain versions ran on "
                                   f"CUDA tensors: {run['plain']}")
+        _require_stream_route(label, run)
         if label not in ("iso", "cheby"):
             run.pop("mask", None)  # the times phase rebuilds from these two
         runs[label] = run
@@ -821,33 +961,36 @@ def phase_parity(seed):
                 f"parity[{precond}]: iterations differ by more than 1")
 
 
-def _k1_fns(system, x, r):
-    """name -> (kernel call, plain call, shape) for K1 on one system."""
+def _k1_fns(system, x, r, **plan):
+    """name -> (kernel call, plain call, shape) for K1 on one system;
+    ``plan`` (route, run, rows) overrides the launcher's own plan."""
+    import functools
+
     from openimpala_tpu_torch.ops import stencil as st
     from openimpala_tpu_torch.ops import stencil_cuda as sc
 
+    k1 = functools.partial(sc.k1_stencil, **plan)
     code, w, per = system.code, system.w, system.periodic
     shape = tuple(code.shape)
     x64 = x.double()
     return {
         "k1_matvec_dot_f32": (
-            lambda: sc.k1_stencil("matvec", x, None, code, w, per,
-                                  with_dot=True),
+            lambda: k1("matvec", x, None, code, w, per, with_dot=True),
             lambda: st.apply_code_with_dot_plain(x, code, w, per), shape),
         "k1_matvec_f32": (
-            lambda: sc.k1_stencil("matvec", x, None, code, w, per),
+            lambda: k1("matvec", x, None, code, w, per),
             lambda: st.apply_code_plain(x, code, w, per), shape),
         "k1_resid_f32": (
-            lambda: sc.k1_stencil("resid", x, r, code, w, per),
+            lambda: k1("resid", x, r, code, w, per),
             lambda: st.residual_restricted_plain(x, r, code, w, per), shape),
         "k1_sweep_f32": (
-            lambda: sc.k1_stencil("sweep", x, r, code, w, per, omega=0.9),
+            lambda: k1("sweep", x, r, code, w, per, omega=0.9),
             lambda: st.smooth_sweep_plain(x, r, code, w, per, 0.9), shape),
         "k1_restrict_f32": (
-            lambda: sc.k1_stencil("restrict", x, r, code, w, per),
+            lambda: k1("restrict", x, r, code, w, per),
             lambda: st.residual_restrict_plain(x, r, code, w, per), shape),
         "k1_matvec_f64": (
-            lambda: sc.k1_stencil("matvec", x64, None, code, w, per),
+            lambda: k1("matvec", x64, None, code, w, per),
             lambda: st.apply_code_plain(x64, code, w, per), shape),
     }
 
@@ -971,17 +1114,27 @@ def _restricted_fns(x, diag, free, w, per, k5: bool):
 
 
 def _time_path_kernels(by_path, label, names, fns, run, cost=None,
-                       k3_levels=None):
+                       k3_levels=None, general=None):
     """Time each of a path's kernels (graph, eager, plain) and file the
-    record under ``by_path[name][label]``."""
+    record under ``by_path[name][label]``.  ``general``: K1's calls forced
+    onto the general route, timed beside the route the rule chose."""
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+
     it = run["iterations"]
     for name in names:
         kfn, pfn, kshape = fns[name]
         n = run["counts"].get(name, 0)
+        before = dict(sc.launches_route)
         t = {"launches": n, "launches_per_pcg_iter": n / it,
              "shape": list(kshape), "ms": graph_ms(kfn),
              "ms_eager": cuda_ms(kfn, 20),
              "plain_ms": cuda_ms(pfn, 3, warmup=1)}
+        if general and name in general:
+            took = sorted(k[1] for k, v in sc.launches_route.items()
+                          if k[0] == name and v != before.get(k, 0))
+            require(len(took) == 1, f"times {name} [{label}]: routes {took}")
+            t["k1_route"] = took[0]
+            t["general_route_ms"] = graph_ms(general[name][0])
         if cost and name in cost:
             t["bytes_per_cell"], t["flops_per_cell"] = cost[name]
             lv = k3_levels[name]
@@ -992,7 +1145,9 @@ def _time_path_kernels(by_path, label, names, fns, run, cost=None,
         by_path[name][label] = t
         log(f"times {name} [{label}] {kshape}: {t['ms']:.4f} ms graph, "
             f"{t['ms_eager']:.4f} ms eager, plain {t['plain_ms']:.3f} ms;"
-            f" launches {n} ({t['launches_per_pcg_iter']:.2f}/iter)")
+            f" launches {n} ({t['launches_per_pcg_iter']:.2f}/iter)"
+            + (f"; {t['k1_route']} route, general route "
+               f"{t['general_route_ms']:.4f} ms" if "k1_route" in t else ""))
         if "levels" in t:
             log(f"times {name} [{label}] all {n} launches, each at its "
                 f"level's time: {t['ms_all_launches']:.1f} ms, bound "
@@ -1054,7 +1209,8 @@ def _times_cheby(chk, by_path, label, system, M, gen, runs, expect):
     fns = _k1_fns(system, x, r)
     k45, beside = _k4_beside_k5(chk, M, x, case)
     fns.update(k45)
-    _time_path_kernels(by_path, label, expect, fns, runs[label])
+    _time_path_kernels(by_path, label, expect, fns, runs[label],
+                       general=_k1_fns(system, x, r, route="general"))
     rec = by_path["k5_matvec_f32"][label]
     rec["k4_on_the_same_input"] = beside
     full = runs["iso"]["mask"]
@@ -1169,7 +1325,8 @@ def phase_times(chk, vol, seed, runs):
             fns.update(_k2_fns(levels))
             del levels
         _time_path_kernels(by_path, label, expect, fns, runs[label], cost,
-                           k3_levels)
+                           k3_levels,
+                           general=_k1_fns(system, x, r, route="general"))
         del system, mg, fns, x, r
         torch.cuda.empty_cache()
 
@@ -1197,12 +1354,17 @@ def phase_times(chk, vol, seed, runs):
             "timed_on": main_label, "shape": t["shape"],
             "ms_eager": t["ms_eager"], "paths": paths,
         }
+        if "k1_route" in t:
+            entry["k1_route"] = t["k1_route"]
+            entry["general_route_ms"] = t["general_route_ms"]
         kernels.append(entry)
         log(f"times {name}: {entry['ms']:.4f} ms on {main_label} "
             f"{tuple(t['shape'])}, bound {entry['bound_ms']:.4f} ms by "
             f"{entry['bound_by']} ({entry['bound_ms'] / entry['ms']:.1%} of "
             f"bound); launches " + json.dumps(
-                {p: v["launches"] for p, v in paths.items()}))
+                {p: v["launches"] for p, v in paths.items()})
+            + (f"; {t['k1_route']} route, general route "
+               f"{t['general_route_ms']:.4f} ms" if "k1_route" in t else ""))
     return kernels
 
 

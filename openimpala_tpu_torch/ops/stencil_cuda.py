@@ -38,10 +38,24 @@ cell, each input read once and each output written once:
     K4 / K5 (x, diag, free, out)        13 B f32   25 B f64
     K4 with a scalar or per-lane diag    9 B f32   17 B f64
 
-What the simple design leaves on the table: neighbours along Y and Z are
-re-read through L1/L2 instead of from a shared-memory tile, loads are
-4 (8) bytes per thread rather than 16, a restrict thread recomputes the
-stencil of its 8 fine cells from cache, and the fused dot pays a second
+K1 has two routes, chosen from the shape alone (``k1_route``).  The
+*stream* route takes every volume whose rows are whole 16-byte vectors and
+at least one tile wide (Z a multiple of 4 and >= 128 in float32, of 2 and
+>= 64 in float64) and large enough to give each multiprocessor a block: a
+block owns a 16 x 128-cell tile of the (Y, Z) plane (16 x 64 in float64;
+8 rows where Y or Z is periodic) and streams down a run of 64 X planes
+(``k1_plan``; 32 where a small volume needs more blocks), so the X halo is
+3 %; x reaches shared memory through the Tensor Memory Accelerator into a
+ring of four planes with an mbarrier pair per stage and no block-wide
+barrier per plane; a thread owns one 16-byte vector of two rows (one),
+loads r and code once with streaming 16- and 8-byte loads one plane ahead,
+stores out with a streaming 16-byte store, and restrict sums its 2x2x2 in
+the same pass.  What that moves beyond the compulsory bytes: the tile's
+halo, (16+2)/16 x (128+8)/128 = 1.195 of x (4 of the 10 to 14 bytes per
+cell), read through L2, and 2 planes per run.  The *general* route takes
+every other extent down to 1 with one thread per cell (Y and Z neighbours
+through L1/L2, 4-byte loads, restrict recomputing 8 stencils per coarse
+cell).  K2, K4 and K5 keep that simple design; the fused dots pay a second
 one-block launch.
 
 Build: each source is compiled by its own ``nvcc`` into a plain-C shared
@@ -58,13 +72,18 @@ Counters: every launch adds one to ``launches[name]``
 a plain form with a CUDA tensor adds one to ``plain_on_cuda[name]``.
 K3 runs on every level of a hierarchy, so its launcher also adds one to
 ``launches_at[(name, (X, Y, Z))]``: the same launches, split by extent.
+K1's launcher adds one to ``launches_route[(name, route)]`` and to
+``launches_route_at[(name, route, (X, Y, Z))]``: the same launches, split
+by the route that served them.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import hashlib
+import math
 import os
 import subprocess
 import threading
@@ -89,6 +108,9 @@ _GRID_YZ_MAX = 65535  # CUDA's limit on gridDim.y and gridDim.z
 
 launches: collections.Counter = collections.Counter()
 launches_at: collections.Counter = collections.Counter()  # (name, shape)
+launches_route: collections.Counter = collections.Counter()  # (name, route)
+# (name, route, shape)
+launches_route_at: collections.Counter = collections.Counter()
 plain_on_cuda: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
@@ -98,6 +120,8 @@ _libs: dict = {}
 def reset_counts():
     launches.clear()
     launches_at.clear()
+    launches_route.clear()
+    launches_route_at.clear()
     plain_on_cuda.clear()
 
 
@@ -179,6 +203,12 @@ def _load(name: str):
                 fn.restype = i
             lib.k1_num_partials.argtypes = [ll, ll, ll]
             lib.k1_num_partials.restype = ll
+            lib.k1_launch_stream.argtypes = [i, i, i, i, p, p, p, p, p, p, ll,
+                                             p, ll, ll, ll, i, i, i, i, d, d,
+                                             d, d, ll, p]
+            lib.k1_launch_stream.restype = i
+            lib.k1_encode_map.argtypes = [p, i, i, p, ll, ll, ll]
+            lib.k1_encode_map.restype = i
         elif name == "k2":
             for fn in (lib.k2_launch_f32, lib.k2_launch_f64):
                 fn.argtypes = [i, p, p, p, p, p, p, p, ll, ll, ll, d, p]
@@ -246,13 +276,175 @@ def _raise_on(err: int, lib, name: str, what: str):
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
+# ---------------------------------------------------------------------------
+# K1: the route, the plan of a launch and its cost, all from the shape
+# ---------------------------------------------------------------------------
+
+K1_ROUTES = ("stream", "general")
+K1_WARPS = 8  # consumer warps of a stream block (csrc NW), plus one producer
+K1_STAGES = 4  # planes in the shared-memory ring (csrc K1_STAGES)
+K1_RUN = 64  # X planes a stream block walks: the X halo is 2 in 64
+K1_MIN_RUN = 32  # ... and the fewest, where a small volume needs more blocks
+K1_FILL_BLOCKS = 264  # blocks wanted before runs stop shrinking: 2 x 132 SMs
+K1_MIN_BLOCKS = 132  # fewer than one block per SM: the general route
+SMEM_BLOCK_MAX = 232448  # bytes of shared memory one block can use (sm_90)
+_ITEMSIZE = {torch.float32: 4, torch.float64: 8}
+# flops per cell, as the kernels' expressions count them
+_K1_FLOPS = {"matvec": 10, "matvec_dot": 12, "resid": 11, "sweep": 14,
+             "restrict": 12}
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """One K1 launch: the route, the grid (x, y, z), the threads and the
+    dynamic shared memory of a block, the (Y, Z) tile of a block and the X
+    planes it walks, and (stream route) the rows per consumer thread."""
+
+    route: str
+    grid: tuple
+    threads: int
+    smem: int
+    tile: tuple
+    run: int
+    rows: int
+
+    @property
+    def blocks(self) -> int:
+        return math.prod(self.grid)
+
+
+def _stream_run(X: int, tiles: int) -> int:
+    """X planes per stream block: runs of about K1_RUN planes; shorter,
+    down to K1_MIN_RUN, where the grid would otherwise not fill the card;
+    even, so that a restrict block holds whole plane pairs."""
+    nruns = max(1, X // K1_RUN)
+    if tiles * nruns < K1_FILL_BLOCKS:
+        nruns = max(nruns, min(-(-K1_FILL_BLOCKS // tiles), X // K1_MIN_RUN))
+    run = -(-X // nruns)
+    return run + (run & 1)
+
+
+def _stream_plan(mode, shape, dtype, periodic, run=None, rows=None) -> K1Plan:
+    """The stream route's launch.  A thread owns two rows of a tile, which
+    restrict needs and which is 3 to 5 % faster on clamped volumes; with a
+    seam along Y or Z (a periodic axis) it owns one: the seam cells come
+    from global memory inside the plane loop, and the two-row kernel, at
+    two blocks per multiprocessor, has too few warps to hide that (5 to
+    15 % slower there)."""
+    X, Y, Z = shape
+    es = _ITEMSIZE[dtype]
+    vec = 16 // es
+    if rows is None:
+        rows = 2 if mode == "restrict" or not (periodic[1] or periodic[2]) \
+            else 1
+    if rows not in (1, 2) or (mode == "restrict" and rows != 2):
+        raise ValueError(f"K1: rows={rows} for mode {mode!r}")
+    ty, tz = K1_WARPS * rows, 32 * vec
+    tiles = -(-Z // tz) * -(-Y // ty)
+    run = run or _stream_run(X, tiles)
+    if run < 1 or (mode == "restrict" and run % 2):
+        raise ValueError(f"K1: run={run} for mode {mode!r}")
+    stage = -(-((ty + 2) * (tz + 2 * vec) * es) // 128) * 128
+    grid = (-(-Z // tz), -(-Y // ty), -(-X // run))
+    return K1Plan("stream", grid, (K1_WARPS + 1) * 32,
+                  K1_STAGES * stage + 128, (ty, tz), run, rows)
+
+
+def k1_stream_takes(shape, dtype, aligned: bool = True) -> bool:
+    """Whether the stream route can serve the volume at all: a row of Z is
+    whole 16-byte vectors (the tensor map's stride rule and the vector
+    loads of ``r``, ``code`` and ``out``) and at least one tile of 32
+    vectors wide, and every base address is 16-byte aligned."""
+    vec = 16 // _ITEMSIZE[dtype]
+    return bool(aligned and shape[2] % vec == 0 and shape[2] >= 32 * vec
+                and min(shape) >= 1 and max(shape) < 2 ** 31)
+
+
+def k1_route(shape, dtype, periodic=(False, False, False),
+             aligned: bool = True) -> str:
+    """The route that serves K1 on an (X, Y, Z) volume, a rule of the shape
+    alone: ``"stream"`` where the stream route can take the volume
+    (``k1_stream_takes``) and its grid gives every multiprocessor a block,
+    ``"general"`` otherwise (small volumes, where everything sits in L2
+    and a launch is mostly latency, and rows that are not whole vectors)."""
+    if (k1_stream_takes(shape, dtype, aligned) and _stream_plan(
+            "matvec", shape, dtype, periodic).blocks >= K1_MIN_BLOCKS):
+        return "stream"
+    return "general"
+
+
+def k1_plan(mode: str, shape, dtype, periodic=(False, False, False),
+            aligned: bool = True, route=None, run=None, rows=None) -> K1Plan:
+    """Plan one K1 launch (``mode`` may be ``"matvec_dot"``).  ``route``,
+    ``run`` and ``rows`` override the rule, for measurements and seam
+    tests; a route the shape cannot take raises."""
+    X, Y, Z = shape
+    route = route or k1_route(shape, dtype, periodic, aligned)
+    if route not in K1_ROUTES:
+        raise ValueError(f"unknown K1 route {route!r}")
+    if route == "stream":
+        if not k1_stream_takes(shape, dtype, aligned):
+            raise ValueError(f"K1: the stream route cannot take "
+                             f"{tuple(shape)} {dtype} (aligned={aligned})")
+        plan = _stream_plan(mode, shape, dtype, periodic, run, rows)
+    elif mode == "restrict":
+        plan = K1Plan(route, (-(-(Z // 2) // 32), -(-(Y // 2) // 8), X // 2),
+                      256, 0, (8, 32), 1, 1)
+    else:
+        plan = K1Plan(route, (-(-Z // 32), -(-Y // 8), -(-X // 8)), 256,
+                      2048 if mode == "matvec_dot" else 0, (8, 32), 8, 1)
+    if (plan.grid[1] > _GRID_YZ_MAX or plan.grid[2] > _GRID_YZ_MAX
+            or plan.grid[0] >= 2 ** 31):
+        raise ValueError(f"K1: extent {tuple(shape)} exceeds the grid")
+    return plan
+
+
+def k1_cost(mode: str, shape, dtype):
+    """(compulsory bytes, flops) of one K1 launch: x, code and out (and r
+    for resid, sweep, restrict), each read or written once; restrict
+    writes an eighth of the cells.  ``mode`` may be ``"matvec_dot"``."""
+    es = _ITEMSIZE[dtype]
+    cells = math.prod(shape)
+    per_cell = es + 2 + (es / 8 if mode == "restrict" else es)
+    if mode not in ("matvec", "matvec_dot"):
+        per_cell += es
+    return per_cell * cells, _K1_FLOPS[mode] * cells
+
+
+_k1_maps: dict = {}  # (x address, shape, dtype, rows) -> 128-byte tensor map
+
+
+def _k1_map(lib, x, rows: int):
+    """The tensor map of ``x`` for the stream route, encoded once per
+    (address, shape, dtype, rows): the allocator hands the solver the same
+    few blocks over and over."""
+    key = (x.data_ptr(), tuple(x.shape), x.dtype, rows)
+    buf = _k1_maps.get(key)
+    if buf is None:
+        if len(_k1_maps) >= 4096:
+            _k1_maps.clear()
+        buf = ctypes.create_string_buffer(128)
+        err = lib.k1_encode_map(buf, int(x.dtype == torch.float64), rows,
+                                x.data_ptr(), *x.shape)
+        if err != 0:
+            raise RuntimeError(
+                "K1: cuTensorMapEncodeTiled "
+                + ("is not in this CUDA library" if err < 0
+                   else f"failed with CUresult {err}")
+                + f" for x {tuple(x.shape)} {x.dtype}")
+        _k1_maps[key] = buf
+    return buf
+
+
 def k1_stencil(mode: str, x, r, code, w, periodic, omega: float = 0.9,
-               with_dot: bool = False):
+               with_dot: bool = False, route=None, run=None, rows=None):
     """Launch K1 on the current stream.  ``x`` (and ``r`` for resid, sweep,
     restrict) float32/float64, ``code`` bfloat16, all contiguous (X, Y, Z)
     on the current CUDA device.  Returns ``out``, or ``(out, dot)`` with a
     0-d ``dot = <x, out>`` when ``with_dot`` (matvec only).  restrict needs
-    every extent even and returns the (X/2, Y/2, Z/2) coarse residual."""
+    every extent even and returns the (X/2, Y/2, Z/2) coarse residual.
+    The route follows ``k1_route``; ``route``, ``run`` and ``rows`` override
+    the plan (``k1_plan``) for measurements and seam tests."""
     if mode not in K1_MODES:
         raise ValueError(f"unknown K1 mode {mode!r}")
     if with_dot and mode != "matvec":
@@ -267,23 +459,40 @@ def k1_stencil(mode: str, x, r, code, w, periodic, omega: float = 0.9,
     lib = _load("k1")
     oshape = (X // 2, Y // 2, Z // 2) if mode == "restrict" else (X, Y, Z)
     out = torch.empty(oshape, dtype=x.dtype, device=x.device)
+    rp = None if r is None or mode == "matvec" else r.data_ptr()
+    aligned = all(a % 16 == 0 for a in (x.data_ptr(), rp or 0,
+                                        code.data_ptr(), out.data_ptr()))
+    plan = k1_plan(f"{mode}_dot" if with_dot else mode, (X, Y, Z), x.dtype,
+                   periodic, aligned, route, run, rows)
     partials = dot = None
     if with_dot:
-        partials = torch.empty(lib.k1_num_partials(X, Y, Z),
-                               dtype=torch.float64, device=x.device)
+        partials = torch.empty(plan.blocks, dtype=torch.float64,
+                               device=x.device)
         dot = torch.empty((), dtype=x.dtype, device=x.device)
-    fn = lib.k1_launch_f32 if x.dtype == torch.float32 else lib.k1_launch_f64
-    err = fn(K1_MODES[mode], int(with_dot), x.data_ptr(),
-             None if r is None or mode == "matvec" else r.data_ptr(),
-             code.data_ptr(), out.data_ptr(),
-             None if partials is None else partials.data_ptr(),
-             None if dot is None else dot.data_ptr(), X, Y, Z,
-             int(bool(periodic[0])), int(bool(periodic[1])),
-             int(bool(periodic[2])), int(not (w[0] == w[1] == w[2])),
-             float(w[0]), float(w[1]), float(w[2]), float(omega),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, lib, "k1", f"K1 {mode}")
-    launches[f"k1_{mode}{'_dot' if with_dot else ''}_{_DTYPES[x.dtype]}"] += 1
+    pp = None if partials is None else partials.data_ptr()
+    dp = None if dot is None else dot.data_ptr()
+    geom = (X, Y, Z, int(bool(periodic[0])), int(bool(periodic[1])),
+            int(bool(periodic[2])), int(not (w[0] == w[1] == w[2])),
+            float(w[0]), float(w[1]), float(w[2]), float(omega))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if plan.route == "stream":
+        err = lib.k1_launch_stream(
+            int(x.dtype == torch.float64), plan.rows, K1_MODES[mode],
+            int(with_dot), _k1_map(lib, x, plan.rows), x.data_ptr(), rp,
+            code.data_ptr(), out.data_ptr(), pp, plan.blocks, dp, *geom,
+            plan.run, stream)
+    else:
+        if with_dot and lib.k1_num_partials(X, Y, Z) != plan.blocks:
+            raise RuntimeError("K1: the plan's grid is not the kernel's")
+        fn = (lib.k1_launch_f32 if x.dtype == torch.float32
+              else lib.k1_launch_f64)
+        err = fn(K1_MODES[mode], int(with_dot), x.data_ptr(), rp,
+                 code.data_ptr(), out.data_ptr(), pp, dp, *geom, stream)
+    _raise_on(err, lib, "k1", f"K1 {mode} ({plan.route} route)")
+    name = f"k1_{mode}{'_dot' if with_dot else ''}_{_DTYPES[x.dtype]}"
+    launches[name] += 1
+    launches_route[name, plan.route] += 1
+    launches_route_at[name, plan.route, (X, Y, Z)] += 1
     return (out, dot) if with_dot else out
 
 

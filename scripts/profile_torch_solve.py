@@ -33,7 +33,7 @@ from openimpala_tpu_torch import (
     effective_diffusivity, rev_study, tortuosity)
 from openimpala_tpu_torch.utils.sample_data import make_blobs
 
-HAND = ("k1_planes", "k1_restrict", "k2_cells", "k3_cells", "k4_planes",
+HAND = ("k1_stream", "k1_planes", "k1_restrict", "k2_cells", "k3_cells", "k4_planes",
         "k5_stream", "reduce_partials")
 
 

@@ -94,6 +94,84 @@ def test_k1_k2_match_plain(cuda, kind, shape, dx, dtype):
                                    lvl.sweep_plain(xl, rl, 0.9), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind,shape,dx,plan", [
+    # the general route on tiny extents and on rows that are no whole vectors
+    ("cell", (1, 1, 1), (1.0, 1.0, 1.0), {}),
+    ("cell", (2, 2, 2), (1.0, 1.0, 1.0), {}),
+    ("cell", (3, 2, 1), (1.0, 0.5, 2.0), {}),
+    ("flow", (16, 24, 129), (1.0, 1.0, 1.0), {}),
+    ("cell", (16, 24, 127), (1.0, 1.0, 1.0), {}),
+    # the stream route at its seams: ragged tiles, short and uneven runs,
+    # periodic wraps, anisotropic packing, one and two rows per thread
+    ("flow", (16, 24, 128), (1.0, 1.0, 1.0), {"route": "stream"}),
+    ("flow", (16, 24, 132), (1.0, 1.0, 1.0), {"route": "stream"}),
+    ("cell", (16, 24, 252), (1.0, 1.0, 1.0), {"route": "stream"}),
+    ("cell", (6, 4, 128), (1.0, 0.5, 2.0), {"route": "stream"}),
+    ("flow", (65, 20, 516), (1.0, 1.0, 1.0), {"route": "stream", "run": 16}),
+    ("cell", (33, 17, 260), (1.0, 1.0, 1.0), {"route": "stream", "run": 16}),
+    ("cell", (1, 1, 128), (1.0, 1.0, 1.0), {"route": "stream"}),
+    ("flow", (128, 64, 256), (1.0, 0.5, 2.0), {"route": "stream"}),
+    ("cell", (64, 48, 256), (1.0, 0.5, 2.0),
+     {"route": "stream", "rows": 2, "run": 22}),
+    ("flow", (64, 48, 256), (1.0, 1.0, 1.0),
+     {"route": "stream", "rows": 1, "run": 20}),
+])
+def test_k1_routes_match_plain_at_their_seams(cuda, kind, shape, dx, plan,
+                                              dtype):
+    s = _system(kind, shape, dx, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.where(s.free, torch.randn(shape, generator=g, dtype=dtype,
+                                        device=cuda), 0.0)
+    r = torch.where(s.free, torch.randn(shape, generator=g, dtype=dtype,
+                                        device=cuda), 0.0)
+    code, w, per = s.code, s.w, s.periodic
+    sc.reset_counts()
+    out, dot = sc.k1_stencil("matvec", x, None, code, w, per, with_dot=True,
+                             **plan)
+    want, wdot = st.apply_code_with_dot_plain(x, code, w, per)
+    torch.testing.assert_close(out, want, **TOL[dtype])
+    # atol: a wrapped axis of extent 1 or 2 makes the operator singular
+    # and the dot pure rounding of terms of size d x^2
+    torch.testing.assert_close(dot, wdot, rtol=1e-4, atol=1e-5)
+    assert torch.equal(dot, sc.k1_stencil("matvec", x, None, code, w, per,
+                                          with_dot=True, **plan)[1])
+    torch.testing.assert_close(
+        sc.k1_stencil("matvec", x, None, code, w, per, **plan), want,
+        **TOL[dtype])
+    torch.testing.assert_close(
+        sc.k1_stencil("resid", x, r, code, w, per, **plan),
+        st.residual_restricted_plain(x, r, code, w, per), **TOL[dtype])
+    torch.testing.assert_close(
+        sc.k1_stencil("sweep", x, r, code, w, per, omega=0.9, **plan),
+        st.smooth_sweep_plain(x, r, code, w, per, 0.9), **TOL[dtype])
+    if plan.get("rows", 2) == 2 and all(n % 2 == 0 for n in shape):
+        torch.testing.assert_close(
+            sc.k1_stencil("restrict", x, r, code, w, per, **plan),
+            st.residual_restrict_plain(x, r, code, w, per), **TOL[dtype])
+    # every launch took the route the case names
+    assert {k[1] for k in sc.launches_route} == {plan.get("route", "general")}
+    assert sum(sc.launches_route.values()) == sum(sc.launches.values())
+
+
+def test_k1_rule_sends_a_large_volume_down_the_stream(cuda):
+    shape = (160, 128, 512)
+    assert sc.k1_route(shape, torch.float32) == "stream"
+    s = _system("flow", shape, (1.0, 1.0, 1.0), torch.float32, cuda)
+    x = torch.where(s.free, torch.randn(shape, device=cuda), 0.0)
+    sc.reset_counts()
+    out = st.apply_code(x, s.code, s.w, s.periodic)  # the dispatcher
+    assert dict(sc.launches_route) == {("k1_matvec_f32", "stream"): 1}
+    assert sc.launches_route_at["k1_matvec_f32", "stream", shape] == 1
+    torch.testing.assert_close(
+        out, sc.k1_stencil("matvec", x, None, s.code, s.w, s.periodic,
+                           route="general"), **TOL[torch.float32])
+    with pytest.raises(ValueError, match="cannot take"):
+        sc.k1_stencil("matvec", x[:, :, :97].contiguous(), None,
+                      s.code[:, :, :97].contiguous(), s.w, s.periodic,
+                      route="stream")
+
+
 def test_wrappers_refuse_bad_inputs(cuda):
     x = torch.zeros((4, 4, 4), device=cuda)
     code = torch.zeros((4, 4, 4), dtype=torch.bfloat16, device=cuda)
