@@ -29,7 +29,17 @@ Phases (each failure exits non-zero and prints no result line):
                float64, batches of 1, 3 and 64 lanes; the dots must repeat
                bit for bit; K5 (the streaming form) on the same unbatched
                cases, against the plain form and against K4;
-3. main      - six main paths, each driven on its own: ``tortuosity`` on
+3. perc      - ``percolation_mask(method="device")``, the bit-packed fill on
+               the card, held against ``method="host"`` bit for bit (the
+               same mask and the same ``active_vf``): on the main volume
+               in X, Y and Z; on X extents that are not a multiple of 32
+               (100^3 and 33 x 40 x 24); on a serpentine channel that
+               needs many rounds; with an empty inlet face; all open.
+               ``method="native"`` against the host on the main volume.
+               The wall ms of each method per size from 128^3 up, the
+               device fill's rounds, and the rule "auto" follows; the
+               main volume's X mask is kept for the main paths;
+4. main      - six main paths, each driven on its own: ``tortuosity`` on
                a 512^3 blobs volume (porosity 0.4, seed 0, direction X, eps
                1e-9) with the default preconditioner and dx = (1, 1, 1),
                which coarsens through K1 restrict; with dx = (1, 1, 2),
@@ -51,11 +61,19 @@ Phases (each failure exits non-zero and prints no result line):
                least once per PCG iteration) while no plain version sees a
                CUDA tensor, every K1 launch at the path's fine extent must
                have taken the stream route, and the ``sa`` and ``cheby``
-               paths' tau must agree with the default path's to 1e-6;
-4. parity    - the same call at 64^3 on the GPU and on the CPU:
+               paths' tau must agree with the default path's to 1e-6.
+               Each ``tortuosity`` path logs the percolation method it
+               took; where "auto" sends it to the card the device fill
+               must have run, and at the main size its mask must equal the
+               host's X mask of the ``perc`` phase.  ``effective_
+               diffusivity`` logs whether the lockstep lanes ran (required
+               where ``use_lanes`` admits the volume on this card) and is
+               run again with ``lanes=False``: the tensors must agree to
+               1e-9 and the iterations to 1 per direction;
+5. parity    - the same call at 64^3 on the GPU and on the CPU:
                ``tortuosity`` with the default and with the ``sa``
                preconditioner, and ``effective_diffusivity``;
-5. times     - for each path, its kernels against their plain versions on
+6. times     - for each path, its kernels against their plain versions on
                that path's own 512^3 system and coarse levels (K3 on every
                level of the ``sa`` path's hierarchy, each with the launches
                the run made at that extent): max error, the kernel's time
@@ -78,6 +96,8 @@ numpy from a seed; fields on the card from a seeded ``torch.Generator``.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -200,6 +220,12 @@ def require(cond, msg):
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _phase_done(name, t0) -> float:
+    t = time.perf_counter()
+    log(f"phase {name}: {t - t0:.1f} s")
+    return t
 
 
 def card_line() -> str:
@@ -581,6 +607,7 @@ def phase_kernels_k1_seams(chk, gen, dev, rng):
 
 
 def phase_card():
+    from openimpala_tpu_torch.io import native
     from openimpala_tpu_torch.ops import stencil_cuda as sc
 
     log(card_line())
@@ -595,6 +622,9 @@ def phase_card():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    t0 = time.perf_counter()
+    lib = native.require_lib()
+    log(f"native library {lib._name} in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_kernels(chk, seed):
@@ -668,6 +698,159 @@ def phase_kernels(chk, seed):
     log("kernel_checks " + json.dumps(summary))
 
 
+# the perc phase: the sizes whose per-method walls are logged (the main
+# size is added), and its small cases
+PERC_SIZES = (128, 256)
+SERPENTINE_N = 48
+
+
+def _host_fill(vol, direction, method="host"):
+    """``percolation_mask`` with a host ``method`` and its wall seconds
+    (run in a worker thread while the card checks its kernels)."""
+    from openimpala_tpu_torch.io import native
+    from openimpala_tpu_torch.ops.floodfill import percolation_mask
+
+    if method == "native":
+        native.require_lib()  # its build is not the method's time
+    t0 = time.perf_counter()
+    mask, vf = percolation_mask(vol, 1, direction, method=method)
+    return mask, vf, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _record_fills():
+    """Record each call of the bit-packed fill (shape, direction, rounds)
+    through a stand-in for ``packfill.percolation_oneshot_packed`` that
+    changes nothing else."""
+    from openimpala_tpu_torch.ops import packfill
+
+    fills = []
+    fill = packfill.percolation_oneshot_packed
+
+    def recording(phase_ok, direction):
+        out = fill(phase_ok, direction)
+        fills.append({"shape": list(phase_ok.shape),
+                      "direction": direction, "rounds": out[2]})
+        return out
+
+    packfill.percolation_oneshot_packed = recording
+    try:
+        yield fills
+    finally:
+        packfill.percolation_oneshot_packed = fill
+
+
+def _wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _serpentine(n):
+    """The serpentine of ``tests/test_ops.py::test_raster_fill_serpentine``
+    at edge ``n``: open rows in the (X, Y) plane at Z = 1, joined at
+    alternate ends, so the path turns about n/2 times."""
+    phase = np.zeros((n, n, 3), np.uint8)
+    for i in range(n):
+        phase[i, :, 1] = 1 if i % 2 == 0 else 0
+        if i % 4 == 1:
+            phase[i, n - 1, 1] = 1
+        elif i % 4 == 3:
+            phase[i, 0, 1] = 1
+    return phase
+
+
+def _hold_device(case, phase, d, host, fills):
+    """``method="device"`` against the host's (mask, vf) bit for bit;
+    returns the device call's wall seconds and rounds."""
+    from openimpala_tpu_torch.ops.floodfill import percolation_mask
+
+    mask, vf = host
+    (dev, dvf), sec = _wall(lambda: percolation_mask(
+        phase, 1, d, method="device", device="cuda"))
+    require(dev.is_cuda and dev.dtype == torch.bool,
+            f"perc[{case}]: the device fill returned {dev.device} "
+            f"{dev.dtype}")
+    same = torch.equal(dev, torch.from_numpy(np.asarray(mask)).to(dev.device))
+    require(same and dvf == vf,
+            f"perc[{case}] {'XYZ'[d]}: the device fill differs from the "
+            f"host's (active_vf {dvf!r} against {vf!r})")
+    return sec, fills[-1]["rounds"]
+
+
+def phase_perc(vol, n, host_jobs):
+    """The percolation methods on the card against the host (module
+    docstring, phase 3).  ``host_jobs[d]`` is the host fill of ``vol``
+    along ``d``, ``host_jobs["native"]`` the native one along X
+    (``_host_fill``, running in worker threads).  Returns the host's X mask of
+    ``vol`` on the card, for the main paths."""
+    from openimpala_tpu_torch.ops.floodfill import (
+        auto_method, percolation_mask)
+
+    rng = np.random.default_rng(SEED)
+    table = []
+    with _record_fills() as fills:
+        # the card's first use of the fill's ops, outside the timings
+        percolation_mask(make_blobs(32, 0.4, SEED), 1, 0, method="device",
+                         device="cuda")
+        open_ = np.ones((64, 64, 64), np.uint8)
+        empty_face = vol[:64, :64, :64].copy()
+        empty_face[0] = 0
+        small = [("100^3 blobs", make_blobs(100, 0.4, SEED), (0, 1, 2)),
+                 ("33x40x24 random", (rng.random((33, 40, 24)) < 0.5)
+                  .astype(np.uint8), (0, 1, 2)),
+                 (f"serpentine {SERPENTINE_N}^2 x 3",
+                  _serpentine(SERPENTINE_N), (0,)),
+                 ("empty inlet face 64^3", empty_face, (0,)),
+                 ("all open 64^3", open_, (0, 1, 2))]
+        for case, phase, dirs in small:
+            for d in dirs:
+                host = percolation_mask(phase, 1, d, method="host")
+                sec, rounds = _hold_device(case, phase, d, host, fills)
+                log(f"perc[{case}] {'XYZ'[d]}: device = host, active_vf "
+                    f"{host[1]!r}, {rounds} rounds, {sec * 1e3:.1f} ms")
+                if case.startswith("empty"):
+                    require(host[1] == 0.0, f"perc[{case}]: not empty")
+                if case.startswith("all open"):
+                    require(host[1] == 1.0, f"perc[{case}]: not all open")
+        for size in PERC_SIZES + (n,):
+            if size > n:
+                continue
+            v = vol if size == n else make_blobs(size, 0.4, SEED)
+            for d in ((0, 1, 2) if size == n else (0,)):
+                if size == n:
+                    mask, vf, host_s = host_jobs[d].result()
+                else:
+                    (mask, vf), host_s = _wall(lambda: percolation_mask(
+                        v, 1, d, method="host"))
+                dev_s, rounds = _hold_device(f"{size}^3 blobs", v, d,
+                                             (mask, vf), fills)
+                row = {"n": size, "direction": "XYZ"[d], "host_ms":
+                       host_s * 1e3, "device_ms": dev_s * 1e3,
+                       "device_rounds": rounds, "active_vf": vf,
+                       "auto": auto_method(v.shape, "cuda")}
+                if d == 0 and size == n:
+                    nat, nvf, nat_s = host_jobs["native"].result()
+                elif d == 0:
+                    (nat, nvf), nat_s = _wall(lambda: percolation_mask(
+                        v, 1, d, method="native"))
+                if d == 0:
+                    require(np.array_equal(nat, mask) and nvf == vf,
+                            f"perc[{size}^3 blobs] X: native differs from "
+                            "host")
+                    row["native_ms"] = nat_s * 1e3
+                if size == n and d == 0:
+                    mask_x = torch.from_numpy(mask).to("cuda")
+                table.append(row)
+                log("perc " + json.dumps(row))
+    log(f"perc auto rule on cuda: " + json.dumps(
+        {f"{s}^3": auto_method((s, s, s), "cuda")
+         for s in (64, 128, 256, 512, 1024)}))
+    return {"mask_x": mask_x, "table": table}
+
+
 def _k1_routes():
     """K1's launches since the last reset, by (name, route, extent)."""
     from openimpala_tpu_torch.ops import stencil_cuda as sc
@@ -688,19 +871,36 @@ def _log_counts(label, counts, at, plain, routes=None):
     log(f"main[{label}] plain_on_cuda " + json.dumps(plain, sort_keys=True))
 
 
-def _drive_tau(label, vol, n, dx, precond):
-    """One ``tortuosity`` call, counted on its own."""
+def _drive_tau(label, vol, n, dx, precond, host_mask=None):
+    """One ``tortuosity`` call, counted on its own.  Where "auto" sends
+    the percolation to the card, the device fill must have run;
+    ``host_mask``: the host's mask of this volume, which the run's must
+    equal."""
     from openimpala_tpu_torch import tortuosity
     from openimpala_tpu_torch.ops import stencil_cuda as sc
+    from openimpala_tpu_torch.ops.floodfill import auto_method
 
     timings = {}
     torch.cuda.reset_peak_memory_stats()
     sc.reset_counts()
-    t0 = time.perf_counter()
-    res = tortuosity(vol, 1, "X", eps=1e-9, dx=dx, precond=precond,
-                     device="cuda", timings=timings, return_fields=True)
-    wall = time.perf_counter() - t0
+    with _record_fills() as fills:
+        t0 = time.perf_counter()
+        res = tortuosity(vol, 1, "X", eps=1e-9, dx=dx, precond=precond,
+                         device="cuda", timings=timings, return_fields=True)
+        wall = time.perf_counter() - t0
     counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
+    rule = auto_method(vol.shape, "cuda")
+    log(f"main[{label}] percolation: method={res.percolation_method} "
+        f"(auto rule {rule}), device fills {json.dumps(fills)}")
+    require(res.percolation_method == rule,
+            f"main[{label}]: percolation took {res.percolation_method}, "
+            f"the rule names {rule}")
+    if rule == "device":
+        require(len(fills) == 1 and fills[0]["direction"] == 0,
+                f"main[{label}]: the device fill did not run once: {fills}")
+    if host_mask is not None:
+        require(torch.equal(res.active, host_mask),
+                f"main[{label}]: the mask differs from the host's")
     at = dict(sc.launches_at)  # (name, extent) -> K3 launches
     routes = _k1_routes()
     log(f"main[{label}] {n}^3 dx={dx} precond={precond}: "
@@ -760,11 +960,16 @@ def _drive_cheby(label, vol, n, dx, precond, runs):
 
 
 def _drive_deff(label, vol, n, dx, precond):
-    """One ``effective_diffusivity`` call on the whole volume."""
+    """One ``effective_diffusivity`` call on the whole volume, through the
+    lockstep lanes where ``use_lanes`` admits it on this card (the result's
+    ``lanes``); then the same call with ``lanes=False``, whose tensor and
+    iterations must agree (not counted)."""
     from openimpala_tpu_torch import effective_diffusivity
     from openimpala_tpu_torch.ops import stencil_cuda as sc
+    from openimpala_tpu_torch.solve.lanes import use_lanes
 
     timings = {}
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     sc.reset_counts()
     t0 = time.perf_counter()
@@ -772,12 +977,36 @@ def _drive_deff(label, vol, n, dx, precond):
                                 device="cuda", timings=timings)
     wall = time.perf_counter() - t0
     counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
+    peak = torch.cuda.max_memory_allocated()
     routes = _k1_routes()
+    admits = use_lanes(vol.size, 3, "cg", device="cuda")
     log(f"main[{label}] {n}^3 dx={dx} precond={precond}: "
         f"deff={res.deff.tolist()!r} volume_fraction={res.volume_fraction!r} "
         f"iterations={res.iterations} rel_res={res.rel_res!r} "
         f"converged={res.converged} wall_s={wall:.3f} "
-        f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        f"peak_mem_GB={peak / 1e9:.2f} lanes={res.lanes} "
+        f"(use_lanes admits {vol.size} cells: {admits})")
+    require(res.lanes == admits,
+            f"main[{label}]: lanes ran {res.lanes}, the gate says "
+            f"{admits}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    twin = effective_diffusivity(vol, 1, eps=1e-9, dx=dx, precond=precond,
+                                 device="cuda", lanes=not res.lanes)
+    twin_wall = time.perf_counter() - t0
+    err = float(np.abs(twin.deff - res.deff).max())
+    log(f"main[{label}] twin lanes={not res.lanes}: "
+        f"iterations={twin.iterations} wall_s={twin_wall:.3f} "
+        f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}; "
+        f"max abs diff of the tensors {err:.3e}")
+    require(twin.converged and err <= 1e-9,
+            f"main[{label}]: lanes and sequential tensors differ by "
+            f"{err:.3e}")
+    require(all(abs(a - b) <= 1 for a, b in zip(res.iterations,
+                                                twin.iterations)),
+            f"main[{label}]: iterations {res.iterations} against "
+            f"{twin.iterations}")
     log(f"main[{label}] step_s " + json.dumps(
         {k: round(v, 4) for k, v in timings.items()}))
     _log_counts(label, counts, {}, plain, routes)
@@ -902,15 +1131,16 @@ def _require_stream_route(label, run):
                        f"the stream route: {stray}")
 
 
-def phase_main(vol, n):
+def phase_main(vol, n, host_mask):
     """Drive each main path on its own: the counts are zeroed just before
-    its call and read just after."""
+    its call and read just after.  ``host_mask``: the host's X mask of
+    ``vol`` (the ``perc`` phase's)."""
     runs = {}
     for label, (kind, dx, precond, expect) in PATHS.items():
         if label == "cheby":
             run = _drive_cheby(label, vol, n, dx, precond, runs)
         elif kind == "tau":
-            run = _drive_tau(label, vol, n, dx, precond)
+            run = _drive_tau(label, vol, n, dx, precond, host_mask)
         elif kind == "deff":
             run = _drive_deff(label, vol, n, dx, precond)
         else:
@@ -929,30 +1159,40 @@ def phase_main(vol, n):
     return runs
 
 
+def _both(call):
+    """``call("cuda")`` and ``call("cpu")``, and the wall seconds of each."""
+    out, secs = [], []
+    for dev in ("cuda", "cpu"):
+        res, sec = _wall(lambda: call(dev))
+        out.append(res)
+        secs.append(round(sec, 3))
+    return out, secs
+
+
 def phase_parity(seed):
     from openimpala_tpu_torch import effective_diffusivity, tortuosity
 
     vol = make_blobs(64, 0.4, seed)
-    gpu = effective_diffusivity(vol, 1, eps=1e-9, device="cuda")
-    cpu = effective_diffusivity(vol, 1, eps=1e-9, device="cpu")
+    (gpu, cpu), secs = _both(lambda dev: effective_diffusivity(
+        vol, 1, eps=1e-9, device=dev))
     err = float(np.abs(gpu.deff - cpu.deff).max())
     log(f"parity 64^3 effective_diffusivity: deff gpu={gpu.deff.tolist()!r} "
         f"max abs diff to cpu={err:.3e} iterations gpu={gpu.iterations} "
-        f"cpu={cpu.iterations}")
+        f"cpu={cpu.iterations} seconds gpu, cpu {secs}")
     require(gpu.converged and cpu.converged and err <= 1e-6,
             f"parity[deff]: tensors differ by {err:.3e} > 1e-6")
     require(gpu.volume_fraction == cpu.volume_fraction,
             "parity[deff]: volume_fraction differs")
     for precond in ("auto", "sa"):
-        gpu = tortuosity(vol, 1, "X", eps=1e-9, precond=precond,
-                         device="cuda")
-        cpu = tortuosity(vol, 1, "X", eps=1e-9, precond=precond,
-                         device="cpu")
+        (gpu, cpu), secs = _both(lambda dev: tortuosity(
+            vol, 1, "X", eps=1e-9, precond=precond, device=dev))
         rel = abs(gpu.value - cpu.value) / abs(cpu.value)
         log(f"parity 64^3 precond={precond}: tau gpu={gpu.value!r} "
             f"cpu={cpu.value!r} rel={rel:.3e}"
             f" active_vf gpu={gpu.active_vf!r} cpu={cpu.active_vf!r} "
-            f"iterations gpu={gpu.iterations} cpu={cpu.iterations}")
+            f"iterations gpu={gpu.iterations} cpu={cpu.iterations} "
+            f"percolation gpu={gpu.percolation_method} "
+            f"cpu={cpu.percolation_method} seconds gpu, cpu {secs}")
         require(rel <= 1e-6, f"parity[{precond}]: tau rel diff {rel:.3e} "
                              "> 1e-6")
         require(gpu.active_vf == cpu.active_vf,
@@ -1217,9 +1457,8 @@ def _times_cheby(chk, by_path, label, system, M, gen, runs, expect):
     if full.shape != tuple(M.diag.shape):
         del fns, k45, x, r
         torch.cuda.empty_cache()
-        big = make_tortuosity_system(
-            torch.from_numpy(full).to(M.diag.device), 0, -1.0, 1.0,
-            dtype=torch.float32)
+        big = make_tortuosity_system(full, 0, -1.0, 1.0,
+                                     dtype=torch.float32)
         Mb = ChebyshevPreconditioner.from_system(big)
         xb = torch.where(Mb.free, torch.randn(
             full.shape, generator=gen, dtype=torch.float32,
@@ -1286,8 +1525,7 @@ def phase_times(chk, vol, seed, runs):
             system = make_cell_problem_system(active, 0, dx=dx,
                                               dtype=torch.float32)
         else:  # the percolation mask of the run (the cheby path's own)
-            mask = runs["cheby" if label == "cheby" else "iso"]["mask"]
-            active = torch.from_numpy(mask).to(dev)
+            active = runs["cheby" if label == "cheby" else "iso"]["mask"]
             system = make_tortuosity_system(active, 0, -1.0, 1.0, dx=dx,
                                             dtype=torch.float32)
         del active
@@ -1381,21 +1619,40 @@ def main(argv=None):
         return 2
     t_start = time.perf_counter()
     chk = Checker()
+    t0 = time.perf_counter()
+    vol = make_blobs(args.n, 0.4, SEED)
+    log(f"volume {args.n}^3 blobs porosity 0.4 seed {SEED}: "
+        f"{time.perf_counter() - t0:.1f} s, pore fraction {vol.mean():.4f}")
+    t0 = _phase_done("volume", t_start)
     try:
         phase_card()
-        phase_kernels(chk, SEED)
-        t0 = time.perf_counter()
-        vol = make_blobs(args.n, 0.4, SEED)
-        log(f"volume {args.n}^3 blobs porosity 0.4 seed {SEED}: "
-            f"{time.perf_counter() - t0:.1f} s, pore fraction "
-            f"{vol.mean():.4f}")
-        runs = phase_main(vol, args.n)
-        phase_parity(SEED)
-        torch.cuda.empty_cache()
-        kernels = phase_times(chk, vol, SEED, runs)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    t0 = _phase_done("card", t0)
+    # the host and native fills of the perc phase run in worker threads
+    # while the card checks its kernels (the labelling and the BFS run in
+    # native code that releases the interpreter lock); the pool ends with
+    # this block
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        host_jobs = {d: pool.submit(_host_fill, vol, d) for d in (0, 1, 2)}
+        host_jobs["native"] = pool.submit(_host_fill, vol, 0, "native")
+        try:
+            phase_kernels(chk, SEED)
+            t0 = _phase_done("kernels", t0)
+            perc = phase_perc(vol, args.n, host_jobs)
+            t0 = _phase_done("perc", t0)
+            runs = phase_main(vol, args.n, perc["mask_x"])
+            del perc
+            t0 = _phase_done("main", t0)
+            phase_parity(SEED)
+            t0 = _phase_done("parity", t0)
+            torch.cuda.empty_cache()
+            kernels = phase_times(chk, vol, SEED, runs)
+            _phase_done("times", t0)
+        except SmokeFailure as e:
+            print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+            return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -1,6 +1,7 @@
 """Carry solver state across from the JAX package: build the port's
-objects from the leaves of a JAX ``StencilSystem``, Galerkin level,
-Chebyshev or smoothed-aggregation preconditioner, given as numpy arrays.
+objects from the leaves of a JAX ``StencilSystem``, ``LaneSystem``, Galerkin
+level, Chebyshev or smoothed-aggregation preconditioner, given as numpy
+arrays.
 Used by the parity tests to run both solvers on the very same system."""
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ import numpy as np
 import torch
 
 from .ops.stencil import StencilSystem
+from .solve.lanes import LaneSystem
 from .solve.preconditioners import (
     ChebyshevPreconditioner,
     ConductanceLevel,
@@ -33,6 +35,19 @@ def system_from_numpy(code, x_forced, r0_b, b_norm, w, periodic,
     """The port's StencilSystem from the JAX system's leaves."""
     dev = resolve_device(device)
     return StencilSystem(
+        code=_tensor(code, dev), x_forced=_tensor(x_forced, dev),
+        r0_b=_tensor(r0_b, dev), b_norm=_tensor(b_norm, dev),
+        w=tuple(float(v) for v in w),
+        periodic=tuple(bool(p) for p in periodic),
+    )
+
+
+def lane_system_from_numpy(code, x_forced, r0_b, b_norm, w, periodic,
+                           device=None) -> LaneSystem:
+    """The port's LaneSystem from a JAX LaneSystem's leaves (``r0_b`` is
+    (L, X, Y, Z), ``b_norm`` (L,))."""
+    dev = resolve_device(device)
+    return LaneSystem(
         code=_tensor(code, dev), x_forced=_tensor(x_forced, dev),
         r0_b=_tensor(r0_b, dev), b_norm=_tensor(b_norm, dev),
         w=tuple(float(v) for v in w),

@@ -14,9 +14,10 @@ volume-average
 
     D_eff[a][b] = (1/N_total) * sum_active ( delta_ab - d chi_b / d xi_a ).
 
-The three solves run one after the other and share one preconditioner.
-The lockstep lanes of the JAX package (``solve/lanes.py``) are not ported:
-``lanes="auto"`` takes the sequential loop and ``lanes=True`` raises.
+The operator is the same for the three directions (only the RHS carries
+k), so the preconditioner is built once.  The three solves run as lockstep
+lanes of one solve (``solve/lanes.py``) where the memory gate
+``use_lanes`` admits them, else one after the other.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 from ..ops.flux import deff_integrand_sum
 from ..ops.stencil import make_cell_problem_system
 from ..solve.cg import ResidualHistory
+from ..solve.lanes import LaneSystem, solve_system_lanes, use_lanes
 from ..solve.refine import make_precond, solve_system
 from ..utils.common import resolve_device
 from ..utils.profiling import phase_timer
@@ -43,7 +45,11 @@ class EffectiveDiffusivityResult:
     rel_res: tuple
     volume_fraction: float  # active-phase VF (D=1 fraction)
     chi: tuple = None  # (chi_x, chi_y, chi_z) fields if return_fields
-    history: tuple = None  # one ResidualHistory per direction if asked
+    # if return_history: one ResidualHistory per direction on the
+    # sequential path; a 1-tuple whose entries are per-lane tuples where the
+    # three solves ran as lockstep lanes
+    history: tuple = None
+    lanes: bool = False  # the three solves ran as lockstep lanes
 
 
 def effective_diffusivity(
@@ -67,15 +73,20 @@ def effective_diffusivity(
     """D_eff tensor of ``phase_id`` in the (X, Y, Z) volume ``phase`` (numpy
     array or tensor) by periodic homogenisation.
 
+    ``lanes``: ``True`` runs the three cell problems as lockstep lanes
+    (``solve/lanes.py``; only with ``method`` "cg" or "pcg" and a refined
+    ``inner_dtype``, else it raises), ``False`` one after the other,
+    ``"auto"`` as lanes where ``use_lanes`` admits them on the device.
     ``device``: None means CUDA, and raises where there is none; pass
     ``"cpu"`` to run on the CPU.  ``timings``: optional dict that receives
     the wall seconds of each step, summed over the three directions.
     """
-    if lanes is True:
-        raise NotImplementedError(
-            "lockstep lanes (solve/lanes.py) are not ported; use "
-            "lanes='auto' or False")
     dev = resolve_device(device)
+    lanes_ok = method in ("cg", "pcg") and inner_dtype is not None
+    if lanes is True and not lanes_ok:
+        raise ValueError(
+            "lanes=True needs method 'cg' or 'pcg' and an inner_dtype "
+            f"(got method={method!r}, inner_dtype={inner_dtype})")
     if isinstance(phase, torch.Tensor):
         phase = phase.cpu().numpy()
     phase = np.asarray(phase)
@@ -100,37 +111,46 @@ def effective_diffusivity(
     with phase_timer(timings, "mask_upload", dev):
         active = torch.from_numpy(active_np).to(dev)
 
-    chis, iters, rels, convs, hists = [], [], [], [], []
-    M = None
-    for k in range(3):
-        with phase_timer(timings, "system_setup", dev):
-            system = make_cell_problem_system(active, k, tuple(dx),
-                                              dtype=storage)
-            # zero initial iterate (EffDiffFillMtx.F90:126)
-            x0 = torch.zeros(active.shape, dtype=storage, device=dev)
-        if M is None:
-            # the cell-problem OPERATOR is k-independent (only the RHS
-            # carries the direction), so the preconditioner builds once
-            # and is shared by all three chi solves
-            with phase_timer(timings, "hierarchy_build", dev):
-                M = make_precond(system, precond, precond_opts)
-        hist_k = ResidualHistory() if return_history else None
-        hists.append(hist_k)
-        with phase_timer(timings, "solve", dev):
-            chi_k, info = solve_system(
-                system, x0, eps=eps, maxiter=maxiter, method=method,
-                precond=M, inner_dtype=inner_dtype, outer_dtype=dtype,
-                precond_opts=precond_opts, verbose=verbose, history=hist_k,
-                timings=timings,
-            )
-        del system, x0
-        chis.append(chi_k)
-        iters.append(int(info.iterations))
-        rels.append(float(info.rel_res))
-        convs.append(bool(info.converged))
-        if verbose > 0:
-            print(f"  chi_{'xyz'[k]}: iters={iters[-1]} "
-                  f"rel_res={rels[-1]:.3e} converged={convs[-1]}")
+    ran_lanes = lanes_ok and (lanes is True or (lanes == "auto" and use_lanes(
+        n_total, 3, method, inner_bytes=_itemsize(inner_dtype),
+        outer_bytes=_itemsize(dtype), device=dev)))
+    if ran_lanes:
+        chis, iters, rels, convs, hists = _solve_lanes(
+            active, eps, maxiter, precond, precond_opts, dx, inner_dtype,
+            dtype, return_history, verbose, dev, timings)
+    else:
+        chis, iters, rels, convs, hists = [], [], [], [], []
+        M = None
+        for k in range(3):
+            with phase_timer(timings, "system_setup", dev):
+                system = make_cell_problem_system(active, k, tuple(dx),
+                                                  dtype=storage)
+                # zero initial iterate (EffDiffFillMtx.F90:126)
+                x0 = torch.zeros(active.shape, dtype=storage, device=dev)
+            if M is None:
+                # the cell-problem OPERATOR is k-independent (only the RHS
+                # carries the direction), so the preconditioner builds once
+                # and is shared by all three chi solves
+                with phase_timer(timings, "hierarchy_build", dev):
+                    M = make_precond(system, precond, precond_opts)
+            hist_k = ResidualHistory() if return_history else None
+            hists.append(hist_k)
+            with phase_timer(timings, "solve", dev):
+                chi_k, info = solve_system(
+                    system, x0, eps=eps, maxiter=maxiter, method=method,
+                    precond=M, inner_dtype=inner_dtype, outer_dtype=dtype,
+                    precond_opts=precond_opts, verbose=verbose,
+                    history=hist_k, timings=timings,
+                )
+            del system, x0
+            chis.append(chi_k)
+            iters.append(int(info.iterations))
+            rels.append(float(info.rel_res))
+            convs.append(bool(info.converged))
+    if verbose > 0:
+        for k in range(3):
+            print(f"  chi_{'xyz'[k]}: iters={iters[k]} "
+                  f"rel_res={rels[k]:.3e} converged={convs[k]}")
 
     converged = all(convs)
     if converged:
@@ -145,7 +165,35 @@ def effective_diffusivity(
         rel_res=tuple(rels), volume_fraction=vf,
         chi=tuple(chis) if return_fields else None,
         history=tuple(hists) if return_history else None,
+        lanes=ran_lanes,
     )
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _solve_lanes(active, eps, maxiter, precond, precond_opts, dx,
+                 inner_dtype, dtype, return_history, verbose, dev, timings):
+    """The three cell problems as lanes of one lockstep solve.  Returns
+    the per-direction fields, iterations, rel_res, converged flags and the
+    one history of the lockstep solve."""
+    if verbose > 0:
+        print("  lockstep lanes: 3 cell problems as one solve")
+    with phase_timer(timings, "system_setup", dev):
+        lsys = LaneSystem.from_systems([
+            make_cell_problem_system(active, k, tuple(dx), dtype=inner_dtype)
+            for k in range(3)])
+    with phase_timer(timings, "hierarchy_build", dev):
+        M = make_precond(lsys.base(), precond, precond_opts)
+    hist = ResidualHistory() if return_history else None
+    with phase_timer(timings, "solve", dev):
+        x_full, info = solve_system_lanes(
+            lsys, eps=eps, maxiter=maxiter, precond=M,
+            inner_dtype=inner_dtype, outer_dtype=dtype, verbose=verbose,
+            history=hist, timings=timings)
+    return (tuple(x_full[k] for k in range(3)), info.iterations,
+            info.rel_res, info.converged, [hist])
 
 
 def deff_tensor(chi_x, chi_y, chi_z, active, dx=(1.0, 1.0, 1.0),

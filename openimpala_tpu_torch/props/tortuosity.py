@@ -3,8 +3,9 @@
 ``OpenImpala::TortuosityHypre``, ``src/props/TortuosityHypre.{H,cpp}``):
 
 1. optional remspot filter (``TortuosityHypre.cpp:248-292``);
-2. percolation mask from inlet/outlet faces on the host (``:394-558``);
-   active VF = n_active / n_total;
+2. percolation mask from inlet/outlet faces (``:394-558``): the
+   bit-packed fill on the card, the native BFS or the host labelling
+   (``ops/floodfill.py``); active VF = n_active / n_total;
 3. free-set system with the packed bf16 geometry, float32 PCG inside
    float64 iterative refinement, preconditioned by the Galerkin multigrid
    V-cycle (the stencil kernels K1 and K2 on the card) or, with
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.filters import remspot
-from ..ops.floodfill import percolation_mask
+from ..ops.floodfill import auto_method, percolation_mask, upload_phase
 from ..ops.flux import boundary_fluxes
 from ..ops.masks import linear_ramp
 from ..ops.stencil import make_tortuosity_system
@@ -61,8 +62,10 @@ class TortuosityResult:
     converged: bool
     direction: int
     phi: object = None  # potential field (if return_fields)
-    active: object = None  # percolation mask (if return_fields)
+    # percolation mask (if return_fields): a bool tensor on the run's device
+    active: object = None
     history: object = None  # ResidualHistory (if return_history)
+    percolation_method: str = None  # the method that made the mask
 
 
 def tortuosity(
@@ -90,40 +93,58 @@ def tortuosity(
     """Flow-through tortuosity of ``phase_id`` along ``direction`` of the
     (X, Y, Z) volume ``phase`` (numpy array or tensor).
 
-    ``device``: None means CUDA, and raises where there is none; pass
-    ``"cpu"`` to run on the CPU.  ``timings``: optional dict that receives
-    the wall seconds of each step (the device is synchronised at each
-    step's end, so the times include the queued device work).
+    ``percolation_method``: ``"auto"`` (``ops.floodfill.auto_method``:
+    the host labelling on the CPU, the rule measured on the card for
+    CUDA), ``"host"``, ``"native"`` or ``"device"`` (the bit-packed fill on
+    the run's device; a numpy ``phase`` is uploaded as it is, a tensor
+    stays where it is).  ``device``: None means CUDA, and raises where
+    there is none; pass ``"cpu"`` to run on the CPU.  ``timings``: optional
+    dict that receives the wall seconds of each step (the device is
+    synchronised at each step's end, so the times include the queued
+    device work).
     """
     dev = resolve_device(device)
     direction = parse_direction(direction)
-    if isinstance(phase, torch.Tensor):
-        phase = phase.cpu().numpy()
-    phase = np.asarray(phase)
+    if not isinstance(phase, torch.Tensor):
+        phase = np.asarray(phase)
     shape = tuple(phase.shape)
+    perc = percolation_method
+    if perc == "auto":
+        perc = auto_method(shape, dev)
 
     if remspot_passes > 0:
         with phase_timer(timings, "remspot"):
-            phase = remspot(torch.from_numpy(np.ascontiguousarray(phase)),
-                            remspot_passes).numpy()
+            if isinstance(phase, torch.Tensor):
+                phase = remspot(phase, remspot_passes)
+            else:
+                phase = remspot(torch.from_numpy(np.ascontiguousarray(
+                    phase)), remspot_passes).numpy()
 
-    with phase_timer(timings, "percolation_mask"):
+    if perc == "device":  # the mask is made, and stays, on the card
+        with phase_timer(timings, "phase_upload", dev):
+            phase = upload_phase(phase, dev)
+    with phase_timer(timings, "percolation_mask", dev):
         active, active_vf = percolation_mask(phase, phase_id, direction,
-                                             method=percolation_method)
+                                             method=perc, device=dev)
+    del phase
 
     nanres = TortuosityResult(
         value=math.nan, deff=math.nan, active_vf=active_vf,
         flux_in=0.0, flux_out=0.0, flux_rel_diff=math.nan,
         flux_conserved=False, iterations=0, rel_res=math.nan,
-        converged=False, direction=direction,
+        converged=False, direction=direction, percolation_method=perc,
     )
     if active_vf <= np.finfo(np.float64).eps:
         # zero percolation: NaN, matching TortuosityHypre.cpp:170-178,764-777
         return nanres
 
     storage = dtype if inner_dtype is None else inner_dtype
-    with phase_timer(timings, "mask_upload", dev):
-        active_t = torch.from_numpy(active).to(dev)
+    if isinstance(active, torch.Tensor):
+        active_t = active
+    else:  # a host or native mask
+        with phase_timer(timings, "mask_upload", dev):
+            active_t = torch.from_numpy(active).to(dev)
+    del active
     with phase_timer(timings, "system_setup", dev):
         system, x0_free = _build_system(active_t, direction, float(vlo),
                                         float(vhi), tuple(dx), storage)
@@ -147,7 +168,7 @@ def tortuosity(
         return dataclasses.replace(
             nanres, iterations=iterations, rel_res=rel_res,
             phi=x_full if return_fields else None,
-            active=active if return_fields else None,
+            active=active_t if return_fields else None,
             history=hist,
         )
 
@@ -189,6 +210,6 @@ def tortuosity(
         flux_conserved=flux_conserved, iterations=iterations,
         rel_res=rel_res, converged=converged, direction=direction,
         phi=x_full if return_fields else None,
-        active=active if return_fields else None,
-        history=hist,
+        active=active_t if return_fields else None,
+        history=hist, percolation_method=perc,
     )

@@ -37,11 +37,21 @@ class ResidualHistory:
     # refinement round so ``inner`` stays cumulative across rounds
     _base: int = 0
 
+    @staticmethod
+    def _val(rel):
+        """A float, or a tuple of floats where a lockstep solve
+        (``solve/lanes.py``) observes one residual per lane."""
+        if hasattr(rel, "tolist"):  # a tensor or numpy value
+            rel = rel.tolist()
+        if isinstance(rel, (list, tuple)):
+            return tuple(float(v) for v in rel)
+        return float(rel)
+
     def record_inner(self, it: int, rel):
-        self.inner.append((self._base + int(it), float(rel)))
+        self.inner.append((self._base + int(it), self._val(rel)))
 
     def record_outer(self, round_i: int, rel):
-        self.outer.append((int(round_i), float(rel)))
+        self.outer.append((int(round_i), self._val(rel)))
 
 
 def _dot(a, b):

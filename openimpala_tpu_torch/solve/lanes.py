@@ -1,0 +1,352 @@
+"""Lockstep multi-RHS PCG for same-operator stencil systems (counterpart of
+``openimpala_tpu/solve/lanes.py``).
+
+The homogenisation path solves three periodic cell problems on one
+operator; only the right-hand side carries the direction
+(``ops/stencil.py::make_cell_problem_system``; reference
+``EffDiffFillMtx.F90:42-264``).  Here the three solves advance in lockstep
+as lanes of one solve:
+
+* the state is ``(L, X, Y, Z)`` and alpha, beta, the residuals and the
+  convergence flags are per-lane vectors (lane-wise PCG, not block CG: the
+  lanes never couple, so each lane repeats the sequential solve's top-form
+  recurrence, ``solve/cg.py``);
+* every vector update is one op on the stacked lanes, and the host reads
+  one (3, L) probe per chunk of 16 iterations for all lanes;
+* the operator apply is L calls of the shared system's K1 matvec+dot, and
+  the preconditioner, built once from ``base()``, is applied per lane;
+* iterative refinement (``solve/refine.py``'s policy, lane-wise) runs all
+  lanes through one float64 outer residual per round.
+
+Memory gate (``use_lanes``): lane state is L times the mono solve's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..ops.stencil import StencilSystem
+from ..utils.common import device_hbm_limit
+from ..utils.profiling import phase_timer
+from .cg import SolveResult
+
+_VOL = (1, 2, 3)  # the volume axes of an (L, X, Y, Z) stack
+
+
+def _lane_dot(a, b):
+    return torch.sum(a * b, dim=_VOL)
+
+
+def _bcast(v, ndim: int):
+    return v.reshape(v.shape + (1,) * (ndim - 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneSystem:
+    """L restricted systems sharing one operator (code, w, periodic,
+    x_forced); the per-lane data is the stacked RHS and its norms.  Mirrors
+    ``ops.stencil.StencilSystem`` lane-wise."""
+
+    code: torch.Tensor  # shared bf16 packed geometry
+    x_forced: torch.Tensor  # shared forced values (0-d zero for cell problems)
+    r0_b: torch.Tensor  # (L, X, Y, Z) per-lane restricted RHS
+    b_norm: torch.Tensor  # (L,)
+    w: tuple
+    periodic: tuple
+
+    @classmethod
+    def from_systems(cls, systems):
+        """Stack same-operator systems (the operator identity, equal code,
+        w, periodic and x_forced, is the caller's contract)."""
+        base = systems[0]
+        return cls(code=base.code, x_forced=base.x_forced,
+                   r0_b=torch.stack([s.r0_b for s in systems]),
+                   b_norm=torch.stack([s.b_norm for s in systems]),
+                   w=base.w, periodic=base.periodic)
+
+    @property
+    def lanes(self) -> int:
+        return self.r0_b.shape[0]
+
+    def base(self) -> StencilSystem:
+        """Mono StencilSystem view (lane 0): the preconditioner's build and
+        the shared-operator apply."""
+        return StencilSystem(code=self.code, x_forced=self.x_forced,
+                             r0_b=self.r0_b[0], b_norm=self.b_norm[0],
+                             w=self.w, periodic=self.periodic)
+
+    def apply_with_dot(self, x):
+        """``(A x_i, <x_i, A x_i>)`` for every lane: L calls of the base
+        system's matvec with the fused dot (K1 on the card)."""
+        mono = self.base()
+        aps, paps = zip(*(mono.apply_with_dot(x[i])
+                          for i in range(self.lanes)))
+        return torch.stack(aps), torch.stack(paps)
+
+    def initial_residual(self, x0):
+        """Per-lane ``free * (b_i - A (x_forced + x0_i))``; ``x0`` is
+        (L, X, Y, Z) on the free set."""
+        mono = self.base()
+        return torch.stack([
+            torch.where(mono.free,
+                        self.r0_b[i] - mono.apply(self.x_forced + x0[i]),
+                        torch.zeros((), dtype=x0.dtype, device=x0.device))
+            for i in range(self.lanes)])
+
+    def assemble_solution(self, z):
+        free = self.code > 0
+        zero = torch.zeros((), dtype=z.dtype, device=z.device)
+        return self.x_forced + torch.where(free, z, zero)
+
+    def astype(self, dtype) -> "LaneSystem":
+        return dataclasses.replace(
+            self, x_forced=self.x_forced.to(dtype),
+            r0_b=self.r0_b.to(dtype), b_norm=self.b_norm.to(dtype))
+
+
+def _cg_chunk_lanes(lsys, precond, state, denom, eps, chunk: int):
+    """``chunk`` lockstep PCG iterations over all lanes: the lane-wise
+    top-form recurrence of ``solve/cg.py::_cg_chunk``.  A lane that is done
+    pins alpha to 0 and becomes a fixed point; only its counters are gated.
+    Returns the new state and the packed (3, L) probe (iterations, done,
+    rel), still on the device."""
+    L = state[1].shape[0]
+    ndim = state[1].dim()
+    for _ in range(chunk):
+        z, r, p, rz_prev, it, rel, done = state
+        y = r if precond is None else torch.stack(
+            [precond(r[i]) for i in range(L)])
+        rz = _lane_dot(r, y)
+        beta = torch.where((rz_prev > 0) & ~done,
+                           rz / torch.where(rz_prev > 0, rz_prev, 1.0), 0.0)
+        p = y + _bcast(beta, ndim) * p
+        ap, pap = lsys.apply_with_dot(p)
+        ok = (pap > 0) & ~done
+        alpha = torch.where(ok, rz / torch.where(pap > 0, pap, 1.0), 0.0)
+        z = z + _bcast(alpha, ndim) * p
+        r = r - _bcast(alpha, ndim) * ap
+        rel2 = torch.sqrt(_lane_dot(r, r)) / denom
+        done2 = done | (rel2 <= eps) | (pap <= 0)
+        state = (z, r, p, rz, torch.where(done, it, it + 1),
+                 torch.where(done, rel, rel2), done2)
+    probe = torch.stack([state[4].to(torch.float64),
+                         state[6].to(torch.float64),
+                         state[5].to(torch.float64)])
+    return state, probe
+
+
+def cg_lanes(lsys: LaneSystem, r0, denom, eps, maxiter: int, precond,
+             chunk: int = 16, verbose: int = 0, history=None) -> SolveResult:
+    """Lockstep PCG on ``(L, ...)`` state, ``chunk`` iterations per host
+    read (the mono loop's 16), z0 = 0.  ``denom`` is per lane (a zero one
+    falls back to ``||r0_i||``, then to 1); ``precond`` None is the
+    identity.  Returns a ``SolveResult`` whose iterations, rel_res and
+    converged are (L,) tensors."""
+    L = r0.shape[0]
+    dev = r0.device
+    denom = torch.as_tensor(denom, dtype=r0.dtype).to(dev)
+    denom = torch.where(denom > 0, denom, torch.sqrt(_lane_dot(r0, r0)))
+    denom = torch.where(denom > 0, denom, 1.0)
+    rel0 = torch.sqrt(_lane_dot(r0, r0)) / denom
+    state = (torch.zeros_like(r0), r0, torch.zeros_like(r0),
+             torch.zeros((L,), dtype=r0.dtype, device=dev),
+             torch.zeros((L,), dtype=torch.int32, device=dev), rel0,
+             rel0 <= eps)
+    while True:
+        state, probe = _cg_chunk_lanes(lsys, precond, state, denom, eps,
+                                       chunk)
+        its, dones, rels_v = probe.tolist()  # ONE read per chunk
+        if verbose >= 2:
+            rels = ", ".join(f"{v:.3e}" for v in rels_v)
+            print(f"    cg-lanes it={int(max(its)):5d}  rel_res=[{rels}]")
+        if history is not None:
+            history.record_inner(int(max(its)), rels_v)
+        if all(d > 0 for d in dones) or int(max(its)) >= maxiter:
+            break
+    z, r, p, rz, it, rel, done = state
+    return SolveResult(z=z, iterations=it, rel_res=rel, converged=rel <= eps)
+
+
+def _lanes_stalled(rel, prev_rel, eps) -> bool:
+    """Refinement stall: only UNCONVERGED lanes count as progress, so a
+    lane already at rel <= eps does not keep the loop alive while the rest
+    plateau at the float32 floor (mono: refine.py's ``rel >= prev_rel *
+    0.5`` break).  Never stalls on the first round (prev_rel = inf)."""
+    improved = (rel < prev_rel * 0.5) & ~(rel <= eps)
+    return bool(np.isfinite(prev_rel).all() and not improved.any())
+
+
+# Glue steps, lane-wise mirrors of refine.py's ``_outer_residual``,
+# ``_round0_estimate``, ``_scale_inner_rhs`` and ``_accumulate``.
+
+def _outer_residual_lanes(lsys, x_outer, outer_dtype):
+    """Per-lane ``free * (b - A x)`` with the system cast to
+    ``outer_dtype``, and the per-lane norms."""
+    rs = lsys.astype(outer_dtype).initial_residual(x_outer)
+    return rs, torch.sqrt(_lane_dot(rs, rs))
+
+
+def _round0_estimate_lanes(lsys, z_total):
+    """Round-0 residuals in the Krylov (storage) dtype and their float64
+    norms (refine.py: summed in float32)."""
+    r_hi = lsys.initial_residual(z_total.to(lsys.r0_b.dtype))
+    scale = torch.sqrt(torch.sum(r_hi.to(torch.float32) ** 2, dim=_VOL)
+                       .to(torch.float64))
+    return r_hi, scale
+
+
+def _scale_inner_rhs_lanes(r_hi, scale, live, inner_dtype):
+    """Per-lane normalised inner RHS in the Krylov dtype; converged lanes
+    are zeroed, so they ride along as zero systems (alpha pins to 0)."""
+    r_lo = (r_hi / _bcast(torch.where(scale > 0, scale, 1.0),
+                          r_hi.dim()).to(r_hi.dtype)).to(inner_dtype)
+    return r_lo * _bcast(live.to(r_lo.dtype), r_lo.dim())
+
+
+def _accumulate_lanes(z_total, scale, z):
+    return z_total + _bcast(scale, z_total.dim()) * z.to(z_total.dtype)
+
+
+def solve_system_lanes(lsys: LaneSystem, eps: float, maxiter: int,
+                       precond="none", inner_dtype=torch.float32,
+                       inner_eps: float = 1e-5, max_refine_rounds: int = 8,
+                       inner_round_cap: int = 5000,
+                       outer_dtype=torch.float64, precond_opts=None,
+                       verbose: int = 0, history=None, timings=None):
+    """Solve every lane to ``||b_i - A x_i|| / ||b_i|| <= eps`` with
+    ``solve/refine.py::solve_system``'s mixed-precision refinement run in
+    lockstep (one outer residual and one inner Krylov per round for all
+    lanes), x0 = 0 for every lane (the cell problems' initial iterate,
+    ``EffDiffFillMtx.F90:126``).  MIRROR: the policy (round-0 residual in
+    the storage dtype with the 1e-3 guard, adaptive round tolerance from
+    the worst lane, budget, stall break, final re-measure only when stale)
+    is a lane-wise copy of solve_system; keep the two in sync.
+    ``precond``: a name for ``make_precond`` or a built preconditioner,
+    applied per lane.  Returns ``(x_full (L, ...), info)`` with per-lane
+    (L,) iterations, rel_res and converged."""
+    from .refine import make_precond
+
+    L = lsys.lanes
+    dev = lsys.code.device
+    storage_dtype = lsys.r0_b.dtype
+
+    if inner_dtype is None or inner_dtype == outer_dtype:
+        r0 = lsys.initial_residual(torch.zeros_like(lsys.r0_b))
+        res = cg_lanes(lsys, r0, lsys.b_norm, eps, maxiter,
+                       make_precond(lsys.base(), precond, precond_opts),
+                       verbose=verbose, history=history)
+        return lsys.assemble_solution(res.z), res
+
+    if storage_dtype != inner_dtype:
+        lsys = lsys.astype(inner_dtype)
+    with phase_timer(timings, "solve/hierarchy_build", dev):
+        M_lo = make_precond(lsys.base(), precond, precond_opts)
+    # host vector: the denominators' only consumers are host-side
+    denom = np.maximum(lsys.b_norm.double().cpu().numpy(), 0.0)
+    denom = np.where(denom > 0, denom, 1.0)
+
+    z_total = torch.zeros(lsys.r0_b.shape, dtype=outer_dtype, device=dev)
+    total_iters = np.zeros(L, dtype=np.int64)
+    rel = np.full(L, np.inf)
+    prev_rel = np.full(L, np.inf)
+    budget = int(maxiter)
+
+    stale = True  # does rel reflect the current z_total?
+    for round_i in range(int(max_refine_rounds)):
+        with phase_timer(timings, "solve/outer_residual", dev):
+            lo_first = round_i == 0
+            if lo_first:
+                r_hi, scale = _round0_estimate_lanes(lsys, z_total)
+                rel = scale.cpu().numpy() / denom
+                if (rel < 1e-3).any():  # too close to the f32 floor
+                    lo_first = False
+            if not lo_first:
+                r_hi, scale = _outer_residual_lanes(lsys, z_total,
+                                                    outer_dtype)
+                rel = scale.cpu().numpy() / denom
+        stale = False
+        if verbose >= 2:
+            rels = ", ".join(f"{v:.3e}" for v in rel)
+            print(f"  refine round (lanes): outer rel_res=[{rels}]")
+        if history is not None:
+            history.record_outer(round_i, rel)
+        if bool((rel <= eps).all()):
+            break
+        if _lanes_stalled(rel, prev_rel, eps):
+            break  # no unconverged lane halved its residual this round
+        if budget <= 0:
+            break
+        prev_rel = rel
+        live = torch.from_numpy(~(rel <= eps)).to(dev)
+        r_lo = _scale_inner_rhs_lanes(r_hi, scale, live, inner_dtype)
+        del r_hi
+        # adaptive round tolerance from the worst lane (0.3 margin)
+        worst = float(rel.max())
+        need = float(eps / worst) * 0.3 if worst > 0 else inner_eps
+        round_eps = min(max(inner_eps, need), 0.099)
+        with phase_timer(timings, "solve/inner_round", dev):
+            if history is not None:
+                history._base = int(total_iters.max())
+            inner = cg_lanes(lsys, r_lo,
+                             torch.ones((L,), dtype=inner_dtype, device=dev),
+                             round_eps, min(budget, int(inner_round_cap)),
+                             M_lo, verbose=verbose, history=history)
+            del r_lo
+            z_total = _accumulate_lanes(z_total, scale, inner.z)
+            n_it = inner.iterations.cpu().numpy().astype(np.int64)
+            total_iters += n_it
+            budget -= int(n_it.max())
+        stale = True
+
+    if stale:
+        _, scale = _outer_residual_lanes(lsys, z_total, outer_dtype)
+        rel = scale.cpu().numpy() / denom
+        if history is not None:
+            history.record_outer(-1, rel)
+    x_full = lsys.astype(outer_dtype).assemble_solution(z_total)
+    info = SolveResult(z=z_total, iterations=tuple(int(v) for v in
+                                                   total_iters),
+                       rel_res=tuple(float(v) for v in rel),
+                       converged=tuple(bool(v <= eps) for v in rel))
+    return x_full, info
+
+
+# The memory model of a lockstep solve, bytes per cell: ``lanes`` x (the
+# Krylov fields in the inner dtype + the accumulator, the outer residual and
+# the solution in the outer dtype) + what is shared (the phase, the masks,
+# the packed operator, the hierarchy).  Measured on an H100 with
+# ``torch.cuda.max_memory_allocated`` (scripts/torch_perc_lanes.py; PERF.md
+# section 6): a forced three-lane solve peaks at 197.25 B per cell at
+# 256^3 and at 512^3, the sequential loop at 108.25, so a lane costs 44.5 B
+# (5 float32 + 3 float64 fields = 44) and the rest, 65.25 B, is shared.
+LANE_FIELDS_INNER = 5
+LANE_FIELDS_OUTER = 3
+SHARED_BYTES_PER_CELL = 66
+# the CPU reports no device memory: the JAX package's fallback budget
+# (``fgmres._device_hbm_budget``, 6 GiB usable)
+FALLBACK_LIMIT = 6 * 1024 ** 3 / 0.85
+
+
+def lanes_bytes_per_cell(lanes: int, inner_bytes: int = 4,
+                         outer_bytes: int = 8) -> float:
+    return lanes * (LANE_FIELDS_INNER * inner_bytes
+                    + LANE_FIELDS_OUTER * outer_bytes) + SHARED_BYTES_PER_CELL
+
+
+def use_lanes(cells: int, lanes: int, method: str = "cg",
+              inner_bytes: int = 4, outer_bytes: int = 8,
+              device="cpu") -> bool:
+    """Memory gate for the lockstep path: lanes engage where the model
+    (``lanes_bytes_per_cell``) fits in 85 % of the device's memory
+    (``utils.common.device_hbm_limit``), or of ``FALLBACK_LIMIT`` where
+    the device reports none (the CPU)."""
+    if method not in ("cg", "pcg"):
+        return False
+    limit = device_hbm_limit(device)
+    if limit <= 0:
+        limit = FALLBACK_LIMIT
+    need = cells * lanes_bytes_per_cell(lanes, inner_bytes, outer_bytes)
+    return need < 0.85 * limit

@@ -31,3 +31,14 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available on this machine; pass device='cpu' to "
             "run on the CPU")
     return dev
+
+
+def device_hbm_limit(device=None) -> int:
+    """The memory of ``device`` in bytes (None means the current CUDA
+    device): ``torch.cuda.mem_get_info``'s total on CUDA, 0 for the CPU and
+    any device that reports none (counterpart of the JAX package's
+    ``solve/fgmres.py::device_hbm_limit``)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return 0
+    return int(torch.cuda.mem_get_info(dev)[1])

@@ -3,7 +3,7 @@
 
     python3 -m scripts.profile_torch_solve [--n 512] [--precond sa]
         [--precond-opts '{"cycle": "w", "coeff_dtype": "bfloat16"}']
-        [--entry tortuosity|deff|rev]
+        [--entry tortuosity|deff|rev] [--lanes auto|true|false]
 
 (from the repo root)
 
@@ -15,7 +15,9 @@ activities), and prints: the per-step wall seconds, the device busy time
 (sum of kernel and copy durations, one stream) against the wall time of
 the call and of its solve step, the device time of the hand-written
 kernels (K1 to K5) against PyTorch's own kernels, and the top kernels by
-device time.  The last line is one JSON object with those numbers.
+device time; for ``--entry deff``, whether the three cell problems ran as
+lockstep lanes (``--lanes`` is ``effective_diffusivity``'s ``lanes``).
+The last line is one JSON object with those numbers.
 """
 
 from __future__ import annotations
@@ -58,7 +60,13 @@ def main(argv=None):
                     help="entry point: tortuosity (X), deff "
                          "(effective_diffusivity) or rev (rev_study, 64 "
                          "crops of 64^3, the batched solver)")
+    ap.add_argument("--lanes", default="auto",
+                    choices=("auto", "true", "false"),
+                    help="--entry deff: run the three cell problems as "
+                         "lockstep lanes (true), one after the other "
+                         "(false), or as the memory gate decides (auto)")
     args = ap.parse_args(argv)
+    lanes = {"auto": "auto", "true": True, "false": False}[args.lanes]
     opts = json.loads(args.precond_opts)
     if isinstance(opts.get("coeff_dtype"), str):
         opts["coeff_dtype"] = getattr(torch, opts["coeff_dtype"])
@@ -72,14 +80,18 @@ def main(argv=None):
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     vol = make_blobs(args.n, 0.4, 0)
+    lanes_ran = []
 
     def run(timings=None):
         if args.entry == "tortuosity":
             r = tortuosity(vol, 1, "X", timings=timings, **solve)
             return r.iterations, f"tau={r.value!r}"
         if args.entry == "deff":
-            r = effective_diffusivity(vol, 1, timings=timings, **solve)
-            return sum(r.iterations), f"D_xx={float(r.deff[0, 0])!r}"
+            r = effective_diffusivity(vol, 1, timings=timings, lanes=lanes,
+                                      **solve)
+            lanes_ran[:] = [r.lanes]
+            return sum(r.iterations), (f"D_xx={float(r.deff[0, 0])!r} "
+                                       f"lanes={r.lanes}")
         out = rev_study(vol, 1, sizes=(64,), num_samples=64, device="cuda")
         return 0, f"converged={sum(s.converged for s in out)}/{len(out)}"
 
@@ -121,6 +133,7 @@ def main(argv=None):
         "card": card, "n": args.n, "entry": args.entry,
         "precond": args.precond,
         "precond_opts": args.precond_opts, "iterations": iterations,
+        "lanes": lanes_ran[0] if lanes_ran else None,
         "wall_s": wall, "steps_s": timings, "device_busy_ms": busy_ms,
         "hand_kernels_ms": hand_ms, "torch_kernels_ms": busy_ms - hand_ms,
         "top": [{"name": k[:100], "launches": c, "ms": u / 1e3}

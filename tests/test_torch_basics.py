@@ -94,8 +94,14 @@ def test_percolation_empty_face_and_methods():
     phase[0] = 0
     active, vf = floodfill.percolation_mask(phase, 1, 0)
     assert vf == 0.0 and not active.any()
-    with pytest.raises(NotImplementedError):
-        floodfill.percolation_mask(phase, 1, 0, method="native")
+    # every method gives the empty mask; "auto" on the CPU is the host
+    for method in ("host", "native", "device", "auto"):
+        active, vf = floodfill.percolation_mask(phase, 1, 0, method=method,
+                                                device="cpu")
+        assert vf == 0.0 and not np.asarray(active).any()
+        assert isinstance(active, torch.Tensor) == (method == "device")
+    with pytest.raises(ValueError, match="unknown percolation method"):
+        floodfill.percolation_mask(phase, 1, 0, method="raster")
 
 
 @pytest.mark.parametrize("direction", [0, 1, 2])

@@ -424,3 +424,80 @@ def test_rev_study_gpu_matches_cpu(cuda):
     for g, c in zip(gpu, cpu):
         assert g.converged and c.converged and g.seed == c.seed
         np.testing.assert_allclose(g.deff, c.deff, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(33, 40, 24), (100, 17, 9), (5, 64, 3),
+                                   (64, 32, 32)])
+def test_device_fill_matches_host(cuda, shape):
+    from openimpala_tpu_torch.ops.floodfill import percolation_mask
+
+    vol = (np.random.default_rng(9).random(shape) < 0.5).astype(np.uint8)
+    vol_t = torch.from_numpy(vol).to(cuda)
+    for d in range(3):
+        want, want_vf = percolation_mask(vol, 1, d, method="host")
+        for phase in (vol, vol_t):  # a numpy volume and one on the card
+            got, vf = percolation_mask(phase, 1, d, method="device",
+                                       device=cuda)
+            assert got.is_cuda and got.dtype == torch.bool
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+            assert vf == want_vf
+
+
+def test_packed_words_on_card_match_cpu(cuda):
+    """The int32 arithmetic (wrap of o + 1, masked right shifts, the top
+    bit as the sign) gives the same bits on the card as on the CPU."""
+    from openimpala_tpu_torch.ops import packfill as pp
+
+    rng = np.random.default_rng(3)
+    edge = np.array([0x7FFFFFFF, 0xFFFFFFFF, 0x80000000, 0, 1, 0x7FFFFFFE,
+                     0x80000001, 0x55555555], np.uint32).view(np.int32)
+    w = torch.from_numpy(edge)
+    for fn in (pp._low_run, pp._high_run, lambda x: pp._srl(x, 31),
+               lambda x: pp._ks_fill_up(x, x & 1)):
+        assert torch.equal(fn(w.to(cuda)).cpu(), fn(w))
+    o = torch.from_numpy(rng.integers(0, 2 ** 32, (3, 17, 9), dtype=np.uint64)
+                         .astype(np.uint32).view(np.int32))
+    r = o & torch.from_numpy(rng.integers(0, 2 ** 32, (3, 17, 9),
+                                          dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+    assert torch.equal(pp.fill_round(o.to(cuda), r.to(cuda)).cpu(),
+                       pp.fill_round(o, r))
+    m = torch.from_numpy(rng.random((70, 6, 5)) < 0.5)
+    assert torch.equal(pp.pack_x(m.to(cuda)).cpu(), pp.pack_x(m))
+    assert torch.equal(pp.unpack_x(pp.pack_x(m.to(cuda)), 70).cpu(), m)
+
+
+def test_lanes_match_sequential_on_card(cuda):
+    from openimpala_tpu_torch.utils.sample_data import make_blobs
+
+    vol = make_blobs(32, 0.4, 0)
+    sc.reset_counts()
+    lanes = effective_diffusivity(vol, 1, lanes=True, device=cuda)
+    assert sc.launches["k1_matvec_dot_f32"] >= sum(lanes.iterations)
+    assert not sc.plain_on_cuda
+    seq = effective_diffusivity(vol, 1, lanes=False, device=cuda)
+    assert lanes.converged and seq.converged
+    np.testing.assert_allclose(lanes.deff, seq.deff, rtol=0, atol=1e-9)
+    for a, b in zip(lanes.iterations, seq.iterations):
+        assert abs(a - b) <= 1
+
+
+def test_tortuosity_percolation_on_card(cuda):
+    from openimpala_tpu_torch.ops.floodfill import auto_method
+
+    vol = (np.random.default_rng(7).random((40, 18, 16)) < 0.65).astype(
+        np.int32)
+    cpu = tortuosity(vol, 1, "X", device="cpu", return_fields=True)
+    assert cpu.percolation_method == "host"
+    for method in ("auto", "device", "native", "host"):
+        t = {}
+        gpu = tortuosity(torch.from_numpy(vol).to(cuda), 1, "X",
+                         percolation_method=method, device=cuda,
+                         return_fields=True, timings=t)
+        want = auto_method(vol.shape, cuda) if method == "auto" else method
+        assert gpu.percolation_method == want
+        assert gpu.active.is_cuda
+        assert torch.equal(gpu.active.cpu(), cpu.active)
+        assert gpu.active_vf == cpu.active_vf
+        assert ("phase_upload" in t) == (want == "device")
+        assert abs(gpu.value - cpu.value) <= 1e-6 * abs(cpu.value)

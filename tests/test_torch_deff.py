@@ -1,6 +1,7 @@
 """PyTorch port, the homogenisation path: ``deff_integrand_sum`` and
 ``check_operator_properties`` against the JAX package, then
-``effective_diffusivity(..., device="cpu")`` against
+``effective_diffusivity(..., device="cpu")`` (lockstep lanes under
+``lanes="auto"`` at these sizes) against
 ``openimpala_tpu.effective_diffusivity(..., lanes=False, mesh=None)`` on the
 same volumes, and ``tortuosity(precond="cheby")`` against the JAX one.
 
@@ -165,9 +166,23 @@ def test_nan_tensor_when_a_solve_fails(blob_phase):
     assert got.volume_fraction == want.volume_fraction
 
 
-def test_lanes_are_not_ported(blob_phase):
-    with pytest.raises(NotImplementedError, match="lanes"):
-        oit.effective_diffusivity(blob_phase, 1, lanes=True, device="cpu")
+def test_lanes_true_matches_jax_lanes(blob_phase):
+    """``lanes=True`` runs the three cell problems as lockstep lanes: the
+    same tensor as the JAX package's lanes (1e-6, iterations within 2) and
+    as the port's sequential loop (1e-9); where lanes cannot run it
+    raises."""
+    want = oi.effective_diffusivity(blob_phase, 1, lanes=True, mesh=None)
+    got = oit.effective_diffusivity(blob_phase, 1, lanes=True, device="cpu")
+    seq = oit.effective_diffusivity(blob_phase, 1, lanes=False, device="cpu")
+    assert got.converged and want.converged and seq.converged
+    np.testing.assert_allclose(got.deff, np.asarray(want.deff), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(got.deff, seq.deff, rtol=0, atol=1e-9)
+    for g, w in zip(got.iterations, want.iterations):
+        assert abs(g - w) <= 2
+    with pytest.raises(ValueError, match="lanes=True"):
+        oit.effective_diffusivity(blob_phase, 1, lanes=True, device="cpu",
+                                  inner_dtype=None)
 
 
 def test_effective_diffusivity_sa_periodic_18(volumes):
