@@ -39,7 +39,7 @@ Phases (each failure exits non-zero and prints no result line):
                The wall ms of each method per size from 128^3 up, the
                device fill's rounds, and the rule "auto" follows; the
                main volume's X mask is kept for the main paths;
-4. main      - six main paths, each driven on its own: ``tortuosity`` on
+4. main      - eleven main paths, each driven on its own: ``tortuosity`` on
                a 512^3 blobs volume (porosity 0.4, seed 0, direction X, eps
                1e-9) with the default preconditioner and dx = (1, 1, 1),
                which coarsens through K1 restrict; with dx = (1, 1, 2),
@@ -49,7 +49,20 @@ Phases (each failure exits non-zero and prints no result line):
                ``precond="cheby"``, the Chebyshev polynomial on the explicit
                operator, kernel K5 (on a 256^3 volume of the same recipe,
                beside a default-path call there: at 512^3 it needs 951
-               iterations and 37 s).  Then ``effective_diffusivity`` on the
+               iterations and 37 s); with ``precond="mg"``, the
+               rediscretised hierarchy, K1 on every level from 512^3 down
+               to 4^3 (each extent must see K1, K2 must not launch); with
+               the default cycle's options ``transfer="tri"``, ``cycle="w"``
+               and ``smoother="cheby"`` (the last must launch no sweep
+               kernel); and the port's CLI in-process on a uint8 RAW file
+               of the volume (flow_through, X, solver_type = GMRES: FGMRES
+               with the default cycle), whose ``results.txt`` is parsed
+               back (its VolumeFraction must be ``volume_fraction``'s; the
+               restart depth, the Arnoldi steps, the peak memory and the
+               fields held beside the Krylov basis are logged; K1 matvec
+               must launch at least once per Arnoldi step).  Each of
+               these paths' tau must agree with the default path's to
+               1e-6.  Then ``effective_diffusivity`` on the
                same 512^3 volume (three periodic cell problems: K1 and K2 on
                wrapped axes), and ``rev_study`` with 64 crops of 64^3 (one
                batched group, three directions: K4 over 64 lanes, with the
@@ -72,14 +85,22 @@ Phases (each failure exits non-zero and prints no result line):
                1e-9 and the iterations to 1 per direction;
 5. parity    - the same call at 64^3 on the GPU and on the CPU:
                ``tortuosity`` with the default and with the ``sa``
-               preconditioner, and ``effective_diffusivity``;
+               preconditioner, with ``mg`` (in float64, where the
+               iterations must agree to 1), with each option of the
+               default cycle and with ``method="fgmres"``, and
+               ``effective_diffusivity`` with the default, the ``mg``
+               preconditioner (the periodic constant codes) and FGMRES;
 6. times     - for each path, its kernels against their plain versions on
                that path's own 512^3 system and coarse levels (K3 on every
                level of the ``sa`` path's hierarchy, each with the launches
                the run made at that extent): max error, the kernel's time
                from a CUDA graph (``ms``) and back to back from the host
                (``ms_eager``), the plain version's time, the
-               compulsory-bytes bound and launches per PCG iteration; K1
+               compulsory-bytes bound and launches per PCG iteration (per
+               Arnoldi step on the CLI path); K1 on every level of the
+               ``mg`` path's hierarchy, on that level's own code, with the
+               launches at that extent, the route taken, the bound and the
+               general route's time; K1
                with the route it took and the general route's time on the
                same input beside it (timed only).  K5
                is timed on the ``cheby`` path's own (diag, free) with K4
@@ -172,28 +193,49 @@ _K1 = ("k1_matvec_dot_f32", "k1_matvec_f32", "k1_sweep_f32", "k1_matvec_f64")
 _K2 = ("k2_matvec_f32", "k2_sweep_f32")
 _K3 = ("k3_apply_f32", "k3_apply_prefix_f32", "k3_resid_f32", "k3_sweep_f32")
 _K4 = ("k4_matvec_dot_f32", "k4_matvec_f32", "k4_matvec_f64")
+_ISO = (1.0, 1.0, 1.0)
 # the main paths, each driven and counted on its own: label -> (entry
-# point, dx, precond, the kernels it must launch).  "tau" is ``tortuosity``:
-# isotropic spacing coarsens 2x2x2 through K1 restrict; dx = (1, 1, 2)
-# semi-coarsens, so its fine level runs K1 resid; "sa" runs K1 resid and two
-# more matvecs per cycle on the fine level (the smoothed transfers) and K3
-# on every coarse level: the full apply while probing, the prefix apply in
-# the transfers of level 1; "cheby" applies the polynomial through K5 and
-# keeps K1 for the PCG's own matvec and the residuals.  "deff" is
-# ``effective_diffusivity``: the default cycle on three periodic systems.
-# "rev" is ``rev_study``: the batched solver, K4 over the lanes.
+# point, dx, precond, precond_opts, the kernels it must launch).  "tau" is
+# ``tortuosity``: isotropic spacing coarsens 2x2x2 through K1 restrict;
+# dx = (1, 1, 2) semi-coarsens, so its fine level runs K1 resid; "sa" runs K1
+# resid and two more matvecs per cycle on the fine level (the smoothed
+# transfers) and K3 on every coarse level: the full apply while probing,
+# the prefix apply in the transfers of level 1; "cheby" applies the
+# polynomial through K5 and keeps K1 for the PCG's own matvec and the
+# residuals.  "mg" is the rediscretised hierarchy, K1 on every level from
+# the fine one down to 4^3 and no K2.  The three "gmg-*" paths are the
+# default cycle with one option each: trilinear transfers (K1 resid, then
+# the restriction as tensor code), the W-cycle (K2 twice per visit down to
+# w_depth), the Chebyshev smoother (K1 and K2 apply their operators; no
+# sweep kernel runs).  "cli" is the port's CLI on a RAW file, solver_type =
+# GMRES: FGMRES with the default cycle, K1 matvec per Arnoldi step.
+# "deff" is ``effective_diffusivity``: the default cycle on three periodic
+# systems.  "rev" is ``rev_study``: the batched solver, K4 over the lanes.
 PATHS = {
-    "iso": ("tau", (1.0, 1.0, 1.0), "auto", _K1 + _K2 + ("k1_restrict_f32",)),
-    "aniso": ("tau", (1.0, 1.0, 2.0), "auto", _K1 + _K2 + ("k1_resid_f32",)),
-    "sa": ("tau", (1.0, 1.0, 1.0), "sa", _K1 + _K3 + ("k1_resid_f32",)),
-    "cheby": ("tau", (1.0, 1.0, 1.0), "cheby",
+    "iso": ("tau", _ISO, "auto", None, _K1 + _K2 + ("k1_restrict_f32",)),
+    "aniso": ("tau", (1.0, 1.0, 2.0), "auto", None,
+              _K1 + _K2 + ("k1_resid_f32",)),
+    "sa": ("tau", _ISO, "sa", None, _K1 + _K3 + ("k1_resid_f32",)),
+    "cheby": ("tau", _ISO, "cheby", None,
               ("k1_matvec_dot_f32", "k1_matvec_f32", "k1_matvec_f64",
                "k5_matvec_f32")),
-    "deff": ("deff", (1.0, 1.0, 1.0), "auto",
-             _K1 + _K2 + ("k1_restrict_f32",)),
-    "rev": ("rev", (1.0, 1.0, 1.0), None, _K4),
+    "mg": ("tau", _ISO, "mg", None, _K1 + ("k1_restrict_f32",)),
+    "gmg-tri": ("tau", _ISO, "auto", {"transfer": "tri"},
+                _K1 + _K2 + ("k1_resid_f32",)),
+    "gmg-w": ("tau", _ISO, "auto", {"cycle": "w"},
+              _K1 + _K2 + ("k1_restrict_f32",)),
+    "gmg-cheby": ("tau", _ISO, "auto", {"smoother": "cheby"},
+                  ("k1_matvec_dot_f32", "k1_matvec_f32", "k1_matvec_f64",
+                   "k1_restrict_f32", "k2_matvec_f32")),
+    "cli": ("cli", _ISO, "auto", None,
+            ("k1_matvec_f32", "k1_sweep_f32", "k1_restrict_f32",
+             "k1_matvec_f64") + _K2),
+    "deff": ("deff", _ISO, "auto", None, _K1 + _K2 + ("k1_restrict_f32",)),
+    "rev": ("rev", _ISO, None, None, _K4),
 }
 assert {k for *_, ks in PATHS.values() for k in ks} == set(PATH_KERNELS)
+# the paths whose tau must agree with main[iso]'s to 1e-6
+AGREE_WITH_ISO = ("sa", "mg", "gmg-tri", "gmg-w", "gmg-cheby", "cli")
 
 # the REV path: the JAX package's own batched configuration, 64 crops of
 # 64^3 in one group, three directions
@@ -871,11 +913,11 @@ def _log_counts(label, counts, at, plain, routes=None):
     log(f"main[{label}] plain_on_cuda " + json.dumps(plain, sort_keys=True))
 
 
-def _drive_tau(label, vol, n, dx, precond, host_mask=None):
-    """One ``tortuosity`` call, counted on its own.  Where "auto" sends
-    the percolation to the card, the device fill must have run;
-    ``host_mask``: the host's mask of this volume, which the run's must
-    equal."""
+def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None):
+    """One ``tortuosity`` call (``opts``: its ``precond_opts``), counted
+    on its own.  Where "auto" sends the percolation to the card, the device
+    fill must have run; ``host_mask``: the host's mask of this volume, which
+    the run's must equal."""
     from openimpala_tpu_torch import tortuosity
     from openimpala_tpu_torch.ops import stencil_cuda as sc
     from openimpala_tpu_torch.ops.floodfill import auto_method
@@ -886,7 +928,8 @@ def _drive_tau(label, vol, n, dx, precond, host_mask=None):
     with _record_fills() as fills:
         t0 = time.perf_counter()
         res = tortuosity(vol, 1, "X", eps=1e-9, dx=dx, precond=precond,
-                         device="cuda", timings=timings, return_fields=True)
+                         precond_opts=opts, device="cuda", timings=timings,
+                         return_fields=True)
         wall = time.perf_counter() - t0
     counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
     rule = auto_method(vol.shape, "cuda")
@@ -903,7 +946,7 @@ def _drive_tau(label, vol, n, dx, precond, host_mask=None):
                 f"main[{label}]: the mask differs from the host's")
     at = dict(sc.launches_at)  # (name, extent) -> K3 launches
     routes = _k1_routes()
-    log(f"main[{label}] {n}^3 dx={dx} precond={precond}: "
+    log(f"main[{label}] {n}^3 dx={dx} precond={precond} opts={opts}: "
         f"tau={res.value!r} "
         f"active_vf={res.active_vf!r} iterations={res.iterations} "
         f"rel_res={res.rel_res!r} flux_rel_diff={res.flux_rel_diff!r} "
@@ -957,6 +1000,182 @@ def _drive_cheby(label, vol, n, dx, precond, runs):
             f"main[{label}]: K5 launched {c.get('k5_matvec_f32', 0)} times, "
             f"{want} expected for {CHEBY_DEGREE - 1} per application")
     return run
+
+
+def _mg_extents(n):
+    """The extents of ``precond="mg"``'s hierarchy on an n^3 volume, fine
+    to coarse (``MultigridPreconditioner.from_system``'s rule)."""
+    from openimpala_tpu_torch.solve.preconditioners import _can_coarsen
+
+    shapes = [(n, n, n)]
+    while len(shapes) < 10 and _can_coarsen(shapes[-1]):
+        shapes.append(tuple(s // 2 for s in shapes[-1]))
+    return shapes
+
+
+def _drive_mg(label, vol, n, dx, precond, host_mask, opts):
+    """``tortuosity(precond="mg")``: K1 must launch at every extent of the
+    hierarchy, K2 never."""
+    run = _drive_tau(label, vol, n, dx, precond, host_mask, opts)
+    extents = _mg_extents(n)
+    seen = {k[2] for k in run["routes"]}
+    missing = [e for e in extents if e not in seen]
+    require(not missing, f"main[{label}]: no K1 launch at the extents "
+                         f"{missing} of the hierarchy {extents}")
+    stray = sorted(seen - set(extents))
+    require(not stray, f"main[{label}]: K1 ran at extents of no level: "
+                       f"{stray}")
+    k2 = {k: v for k, v in run["counts"].items() if k.startswith("k2_")}
+    require(not k2, f"main[{label}]: the rediscretised cycle launched K2: "
+                    f"{k2}")
+    run["extents"] = extents
+    return run
+
+
+def _drive_option(label, vol, n, dx, precond, host_mask, opts):
+    """The default cycle with one option.  The Chebyshev smoother applies
+    the operators: no K1 sweep at the fine extent and no K2 sweep."""
+    run = _drive_tau(label, vol, n, dx, precond, host_mask, opts)
+    if opts.get("smoother") == "cheby":
+        sweeps = {k: v for k, v in run["routes"].items()
+                  if k[0].startswith("k1_sweep") and k[2] == run["fine"]}
+        k2 = {k: v for k, v in run["counts"].items()
+              if k.startswith("k2_sweep")}
+        require(not sweeps and not k2,
+                f"main[{label}]: the Chebyshev smoother swept: {sweeps} {k2}")
+    return run
+
+
+@contextlib.contextmanager
+def _record_fgmres():
+    """Record each FGMRES solve of ``solve_system`` (restart depth, Arnoldi
+    steps per cycle, device memory at its start and its peak) through a
+    stand-in for ``refine.fgmres`` that changes nothing else.  The peak
+    statistics restart at each solve; ``peaks`` keeps the peak reached
+    before each restart."""
+    import openimpala_tpu_torch.solve.refine as pr
+
+    calls, peaks = [], []
+    solve = pr.fgmres
+
+    def recording(system, r0, *a, **kw):
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = solve(system, r0, *a, **kw)
+        torch.cuda.synchronize()
+        calls.append({"restart": res.restart, "cycle_steps":
+                      list(res.cycle_steps), "iterations": res.iterations,
+                      "rel_res": res.rel_res, "base_bytes": base,
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "field_bytes": r0.numel() * r0.element_size()})
+        return res
+
+    pr.fgmres = recording
+    try:
+        yield calls, peaks
+    finally:
+        pr.fgmres = solve
+
+
+def _drive_cli(label, vol, n):
+    """The port's CLI in-process on a uint8 RAW file of ``vol``
+    (flow_through, X, solver_type = GMRES: FGMRES with the default cycle).
+    ``results.txt`` is parsed back: its VolumeFraction line must be the
+    port's ``volume_fraction`` and its tau that of the run.  Logs the
+    restart depth, the Arnoldi steps, the peak memory and the fields the
+    solve held beside its Krylov basis."""
+    import os
+    import tempfile
+
+    from openimpala_tpu_torch import diffusion
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+    from openimpala_tpu_torch.props.volume_fraction import volume_fraction
+
+    results = []
+    tau_fn = diffusion.tortuosity
+
+    def recording(*a, **kw):
+        results.append(tau_fn(*a, **kw))
+        return results[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        np.ascontiguousarray(vol.T, dtype=np.uint8).tofile(
+            os.path.join(tmp, "vol_uint8.raw"))
+        inputs = os.path.join(tmp, "run.inputs")
+        with open(inputs, "w") as f:
+            f.write(f"filename = vol_uint8.raw\ndata_path = {tmp}/\n"
+                    f"results_path = {tmp}/results/\n"
+                    f"raw.width = {vol.shape[0]}\nraw.height = {vol.shape[1]}"
+                    f"\nraw.depth = {vol.shape[2]}\nraw.datatype = UINT8\n"
+                    "phase_id = 1\ncalculation_method = flow_through\n"
+                    "direction = X\nsolver_type = GMRES\nhypre.eps = 1e-9\n"
+                    "verbose = 1\n")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sc.reset_counts()
+        diffusion.tortuosity = recording
+        try:
+            with _record_fgmres() as (calls, peaks):
+                t0 = time.perf_counter()
+                rc = diffusion.main([inputs])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            diffusion.tortuosity = tau_fn
+        counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
+        routes = _k1_routes()
+        peak = max(peaks + [torch.cuda.max_memory_allocated()])
+        with open(os.path.join(tmp, "results", "results.txt")) as f:
+            lines = f.read().splitlines()
+    require(rc == 0 and len(results) == 1 and calls,
+            f"main[{label}]: the CLI returned {rc} after {len(results)} "
+            f"tortuosity calls and {len(calls)} FGMRES solves")
+    res = results[0]
+    vals = dict(line.split(": ", 1) for line in lines
+                if ": " in line and not line.startswith("#"))
+    vf = volume_fraction(vol, 1, device="cuda")
+    require(vals.get("VolumeFraction") == f"{vf:.9f}",
+            f"main[{label}]: results.txt VolumeFraction "
+            f"{vals.get('VolumeFraction')!r}, volume_fraction {vf!r}")
+    tau_txt = float(vals["Tortuosity_X"])
+    require(tau_txt == float(f"{res.value:.9f}"),
+            f"main[{label}]: results.txt tau {tau_txt!r}, the run's "
+            f"{res.value!r}")
+    steps = sum(c["iterations"] for c in calls)
+    field = calls[0]["field_bytes"]
+    # what a solve held beyond its start and its Krylov basis (k + 1 basis
+    # and k preconditioned fields after k steps), in fields: the
+    # WORK_FIELDS that solve/fgmres.py budgets beside the basis
+    beside = max((c["peak_bytes"] - c["base_bytes"]) / c["field_bytes"]
+                 - (2 * max(c["cycle_steps"]) + 1) for c in calls)
+    log(f"main[{label}] {n}^3 CLI flow_through X solver_type=GMRES: "
+        f"tau={res.value!r} results.txt {vals!r} active_vf="
+        f"{res.active_vf!r} iterations={res.iterations} "
+        f"rel_res={res.rel_res!r} converged={res.converged} "
+        f"flux_conserved={res.flux_conserved} wall_s={wall:.3f} "
+        f"peak_mem_GB={peak / 1e9:.2f}")
+    log(f"main[{label}] fgmres restart m={calls[0]['restart']} "
+        f"Arnoldi steps={steps} per solve "
+        + json.dumps([{k: v for k, v in c.items() if k != "field_bytes"}
+                      for c in calls])
+        + f"; fields beside the basis {beside:.2f} "
+        f"(field {field / 1e9:.3f} GB)")
+    _log_counts(label, counts, {}, plain, routes)
+    require(res.converged and res.flux_conserved,
+            f"main[{label}]: converged={res.converged} "
+            f"flux_conserved={res.flux_conserved}")
+    require(res.iterations == steps,
+            f"main[{label}]: {res.iterations} iterations, {steps} Arnoldi "
+            "steps")
+    mv = counts.get("k1_matvec_f32", 0)
+    require(mv >= steps, f"main[{label}]: K1 matvec launched {mv} times for "
+                         f"{steps} Arnoldi steps")
+    return {"iterations": steps, "counts": counts, "at": {}, "plain": plain,
+            "tau": res.value, "wall_s": wall, "routes": routes,
+            "fine": (n, n, n), "fgmres": calls, "peak_bytes": peak,
+            "beside_fields": beside}
 
 
 def _drive_deff(label, vol, n, dx, precond):
@@ -1136,9 +1355,15 @@ def phase_main(vol, n, host_mask):
     its call and read just after.  ``host_mask``: the host's X mask of
     ``vol`` (the ``perc`` phase's)."""
     runs = {}
-    for label, (kind, dx, precond, expect) in PATHS.items():
+    for label, (kind, dx, precond, opts, expect) in PATHS.items():
         if label == "cheby":
             run = _drive_cheby(label, vol, n, dx, precond, runs)
+        elif label == "mg":
+            run = _drive_mg(label, vol, n, dx, precond, host_mask, opts)
+        elif opts:
+            run = _drive_option(label, vol, n, dx, precond, host_mask, opts)
+        elif kind == "cli":
+            run = _drive_cli(label, vol, n)
         elif kind == "tau":
             run = _drive_tau(label, vol, n, dx, precond, host_mask)
         elif kind == "deff":
@@ -1153,9 +1378,15 @@ def phase_main(vol, n, host_mask):
         if label not in ("iso", "cheby"):
             run.pop("mask", None)  # the times phase rebuilds from these two
         runs[label] = run
-    rel = abs(runs["sa"]["tau"] - runs["iso"]["tau"]) / abs(runs["iso"]["tau"])
-    log(f"main[sa] tau against main[iso]: rel {rel:.3e}")
-    require(rel <= 1e-6, f"main[sa]: tau differs from main[iso] by {rel:.3e}")
+        if label in AGREE_WITH_ISO:
+            rel = abs(run["tau"] - runs["iso"]["tau"]) / abs(
+                runs["iso"]["tau"])
+            log(f"main[{label}] tau against main[iso]: rel {rel:.3e}; "
+                f"iterations {run['iterations']} against "
+                f"{runs['iso']['iterations']}; wall_s {run['wall_s']:.3f} "
+                f"against {runs['iso']['wall_s']:.3f}")
+            require(rel <= 1e-6, f"main[{label}]: tau differs from "
+                                 f"main[iso] by {rel:.3e}")
     return runs
 
 
@@ -1167,6 +1398,18 @@ def _both(call):
         out.append(res)
         secs.append(round(sec, 3))
     return out, secs
+
+
+PARITY_SOLVERS = (
+    # the rediscretised cycle is a weak one (about 165 iterations at 64^3),
+    # and float32 rounding, which differs between the card and the CPU,
+    # moves where it crosses eps by a few iterations: it is held in float64
+    ("mg f64", {"precond": "mg", "inner_dtype": None}),
+    ("gmg-tri", {"precond_opts": {"transfer": "tri"}}),
+    ("gmg-w", {"precond_opts": {"cycle": "w"}}),
+    ("gmg-cheby", {"precond_opts": {"smoother": "cheby"}}),
+    ("fgmres", {"method": "fgmres"}),
+)
 
 
 def phase_parity(seed):
@@ -1199,6 +1442,37 @@ def phase_parity(seed):
                 f"parity[{precond}]: active_vf differs")
         require(abs(gpu.iterations - cpu.iterations) <= 1,
                 f"parity[{precond}]: iterations differ by more than 1")
+    # the solvers of this slice: tau within 1e-6 and the iterations within
+    # 2, the window of the multigrid paths against the JAX package (1 in
+    # float64)
+    for name, kw in PARITY_SOLVERS:
+        (gpu, cpu), secs = _both(lambda dev: tortuosity(
+            vol, 1, "X", eps=1e-9, device=dev, **kw))
+        rel = abs(gpu.value - cpu.value) / abs(cpu.value)
+        log(f"parity 64^3 {name}: tau gpu={gpu.value!r} cpu={cpu.value!r} "
+            f"rel={rel:.3e} iterations gpu={gpu.iterations} "
+            f"cpu={cpu.iterations} seconds gpu, cpu {secs}")
+        require(gpu.converged and cpu.converged and rel <= 1e-6,
+                f"parity[{name}]: tau rel diff {rel:.3e} > 1e-6")
+        require(gpu.active_vf == cpu.active_vf,
+                f"parity[{name}]: active_vf differs")
+        most = 1 if name.endswith("f64") else 2
+        require(abs(gpu.iterations - cpu.iterations) <= most,
+                f"parity[{name}]: iterations differ by more than {most}")
+    for name, kw in (("mg", {"precond": "mg"}), ("fgmres",
+                                                  {"method": "fgmres"})):
+        (gpu, cpu), secs = _both(lambda dev: effective_diffusivity(
+            vol, 1, eps=1e-9, device=dev, **kw))
+        err = float(np.abs(gpu.deff - cpu.deff).max())
+        log(f"parity 64^3 effective_diffusivity {name}: max abs diff to "
+            f"cpu={err:.3e} iterations gpu={gpu.iterations} "
+            f"cpu={cpu.iterations} seconds gpu, cpu {secs}")
+        require(gpu.converged and cpu.converged and err <= 1e-6,
+                f"parity[deff {name}]: tensors differ by {err:.3e}")
+        require(all(abs(a - b) <= 2 for a, b in zip(gpu.iterations,
+                                                    cpu.iterations)),
+                f"parity[deff {name}]: iterations {gpu.iterations} against "
+                f"{cpu.iterations}")
 
 
 def _k1_fns(system, x, r, **plan):
@@ -1324,6 +1598,68 @@ def _k3_levels(chk, mg, gen, run, fns, cost):
     return per_level
 
 
+_K1_MODE = {"k1_matvec_dot_f32": ("matvec_dot", torch.float32),
+            "k1_matvec_f32": ("matvec", torch.float32),
+            "k1_resid_f32": ("resid", torch.float32),
+            "k1_sweep_f32": ("sweep", torch.float32),
+            "k1_restrict_f32": ("restrict", torch.float32),
+            "k1_matvec_f64": ("matvec", torch.float64)}
+
+
+def _k1_levels(chk, mg, gen, run):
+    """K1 on every level of the ``mg`` path's hierarchy: each mode the run
+    launched at that level's extent is held against its plain form on the
+    level's own packed code and timed there, with the route it took, the
+    general route's time beside it and ``k1_cost``'s bound.  Returns name
+    -> one record per level with the run's launches at that extent."""
+    routes = run["routes"]
+    per_level = {name: [] for name in _K1_MODE}
+    for li, lvl in enumerate(mg.levels):
+        shape = tuple(lvl.code.shape)
+        dims = "x".join(map(str, shape))
+        codes = sorted({float(v) for v in lvl.code.float().unique()})
+        names = sorted({k[0] for k in routes if k[2] == shape})
+        log(f"times [mg] level {li}: {dims} codes {codes[:3]}..{codes[-1]} "
+            f"({len(codes)} values), K1 launched: {names}")
+        modes = [_K1_MODE[k][0] for k in names if k.endswith("_f32")]
+        x, r = check_k1(chk, lvl, gen, torch.float32,
+                        f"main[mg] level {li} {dims}", modes=modes)
+        fns = _k1_fns(lvl, x, r)
+        general = _k1_fns(lvl, x, r, route="general")
+        if "k1_matvec_f64" in names:
+            chk.close("k1_matvec_f64", fns["k1_matvec_f64"][0](),
+                      fns["k1_matvec_f64"][1](), torch.float64,
+                      f"main[mg] level {li} {dims}")
+        for name in names:
+            took = sorted({k[1] for k in routes
+                           if k[0] == name and k[2] == shape})
+            require(len(took) == 1,
+                    f"main[mg]: {name} at {dims} took routes {took}")
+            mode, dtype = _K1_MODE[name]
+            nbytes, flops = k1_cost(mode, shape, dtype)
+            kfn, pfn, _ = fns[name]
+            rec = {"level": li, "shape": list(shape), "route": took[0],
+                   "launches": sum(v for k, v in routes.items()
+                                   if k[0] == name and k[2] == shape),
+                   "ms": graph_ms(kfn), "plain_ms": cuda_ms(pfn, 3, warmup=1),
+                   "bound_ms": max(nbytes / PEAK_BYTES_S,
+                                   flops / PEAK_FLOPS_S[dtype]) * 1e3}
+            rec["general_route_ms"] = (rec["ms"] if took[0] == "general"
+                                       else graph_ms(general[name][0]))
+            per_level[name].append(rec)
+            log(f"times {name} [mg] level {li} {dims}: {rec['ms']:.4f} ms "
+                f"graph ({took[0]} route; general {rec['general_route_ms']:.4f}"
+                f" ms), plain {rec['plain_ms']:.3f} ms, bound "
+                f"{rec['bound_ms']:.4f} ms, launches {rec['launches']}")
+        del x, r, fns, general
+    for name, recs in per_level.items():
+        total = sum(v["launches"] for v in recs)
+        require(total == run["counts"].get(name, 0),
+                f"main[mg]: {name} launched {run['counts'].get(name, 0)} "
+                f"times, {total} of them on a level")
+    return {k: v for k, v in per_level.items() if v}
+
+
 def _restricted_fns(x, diag, free, w, per, k5: bool):
     """K4's three counters (and K5 where the input allows it) on one
     (diag, free): name -> (kernel call, plain call, shape)."""
@@ -1354,10 +1690,13 @@ def _restricted_fns(x, diag, free, w, per, k5: bool):
 
 
 def _time_path_kernels(by_path, label, names, fns, run, cost=None,
-                       k3_levels=None, general=None):
+                       levels=None, general=None):
     """Time each of a path's kernels (graph, eager, plain) and file the
     record under ``by_path[name][label]``.  ``general``: K1's calls forced
-    onto the general route, timed beside the route the rule chose."""
+    onto the general route, timed beside the route the rule chose.
+    ``levels``: name -> the per-level records of a hierarchy (``_k3_levels``,
+    ``_k1_levels``); ``cost``: name -> (bytes, flops) per cell where the run
+    sets them."""
     from openimpala_tpu_torch.ops import stencil_cuda as sc
 
     it = run["iterations"]
@@ -1377,8 +1716,11 @@ def _time_path_kernels(by_path, label, names, fns, run, cost=None,
             t["general_route_ms"] = graph_ms(general[name][0])
         if cost and name in cost:
             t["bytes_per_cell"], t["flops_per_cell"] = cost[name]
-            lv = k3_levels[name]
+        if levels and name in levels:
+            lv = levels[name]
             t["levels"] = lv
+            t["launches_at_shape"] = sum(v["launches"] for v in lv
+                                         if v["shape"] == list(kshape))
             t["ms_all_launches"] = sum(v["ms"] * v["launches"] for v in lv)
             t["bound_ms_all_launches"] = sum(
                 v["bound_ms"] * v["launches"] for v in lv)
@@ -1515,7 +1857,7 @@ def phase_times(chk, vol, seed, runs):
     log(f"times: device copy {copy_gbs:.1f} GB/s (read+write)")
 
     by_path = {name: {} for name in PATH_KERNELS}
-    for label, (kind, dx, precond, expect) in PATHS.items():
+    for label, (kind, dx, precond, opts, expect) in PATHS.items():
         if kind == "rev":
             _times_rev(chk, by_path, label, vol, runs[label], gen, expect)
             torch.cuda.empty_cache()
@@ -1531,7 +1873,7 @@ def phase_times(chk, vol, seed, runs):
         del active
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mg = make_precond(system, precond)
+        mg = make_precond(system, precond, opts)
         torch.cuda.synchronize()
         log(f"times [{label}]: hierarchy rebuilt in "
             f"{time.perf_counter() - t0:.3f} s")
@@ -1552,18 +1894,21 @@ def phase_times(chk, vol, seed, runs):
         del x64
         fns = _k1_fns(system, x, r)
         cost = {}  # name -> (bytes, flops) per cell, where the run sets them
-        k3_levels = None
+        levels = None
         if precond == "sa":
-            k3_levels = _k3_levels(chk, mg, gen, runs[label], fns, cost)
+            levels = _k3_levels(chk, mg, gen, runs[label], fns, cost)
+        elif precond == "mg":
+            levels = _k1_levels(chk, mg, gen, runs[label])
         else:
-            levels = [(lvl,) + check_k2(chk, lvl, gen,
-                                        f"main[{label}] level {li + 1} " +
-                                        "x".join(map(str, lvl.diag.shape)))
-                      for li, lvl in enumerate(mg.levels)]
-            fns.update(_k2_fns(levels))
-            del levels
+            k2_levels = [(lvl,) + check_k2(chk, lvl, gen,
+                                           f"main[{label}] level {li + 1} "
+                                           + "x".join(map(str,
+                                                          lvl.diag.shape)))
+                         for li, lvl in enumerate(mg.levels)]
+            fns.update(_k2_fns(k2_levels))
+            del k2_levels
         _time_path_kernels(by_path, label, expect, fns, runs[label], cost,
-                           k3_levels,
+                           levels,
                            general=_k1_fns(system, x, r, route="general"))
         del system, mg, fns, x, r
         torch.cuda.empty_cache()
@@ -1572,9 +1917,10 @@ def phase_times(chk, vol, seed, runs):
     for name, (src, tpu, bpc, fpc, dtype) in PATH_KERNELS.items():
         paths = by_path[name]
         # the headline numbers come from the path where it does most work
-        # (launches times cells)
-        main_label = max(paths, key=lambda p: paths[p]["launches"]
-                         * float(np.prod(paths[p]["shape"])))
+        # (launches at the timed shape times its cells)
+        main_label = max(paths, key=lambda p: paths[p].get(
+            "launches_at_shape", paths[p]["launches"])
+            * float(np.prod(paths[p]["shape"])))
         t = paths[main_label]
         if bpc is None:  # K3: set by the taps of the level this run built
             bpc, fpc = t["bytes_per_cell"], t["flops_per_cell"]

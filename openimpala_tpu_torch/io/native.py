@@ -1,5 +1,8 @@
-"""ctypes binding to the native C++ runtime, the percolation part
-(counterpart of ``openimpala_tpu/io/native.py``).
+"""ctypes binding to the native C++ runtime (counterpart of
+``openimpala_tpu/io/native.py``): the percolation BFS, the threshold
+decoder, the bit unpacker and the remspot filter.  Not bound: ``pack_eq``
+(the port uploads the raw phase and compares on the card) and
+``bfs_seeded`` (the sharded fill, which the single-device port lacks).
 
 The library is the repo's ``native/impala_native.cpp``, compiled by this
 module with ``g++`` and the flags of ``native/Makefile`` on first use into
@@ -8,7 +11,7 @@ carries a hash of the source, the flags and the CPU that ``-march=native``
 resolves to, so that a library built for another CPU is never loaded.
 Where the compiler has no OpenMP runtime (``-fopenmp`` fails), the same
 flags without it: OpenMP parallelises only the decoders of the file, not
-the BFS this module binds.
+the BFS and the filter this module binds.
 Nothing is compiled at import time.  Where the library cannot be built or
 loaded, ``get_lib()`` returns None and ``require_lib()`` raises with the
 reason: the port's ``percolation_mask(method="native")`` never falls back
@@ -113,8 +116,16 @@ def get_lib():
             return None
         lib.impala_percolation_mask.restype = ctypes.c_int64
         lib.impala_percolation_mask_phase.restype = ctypes.c_int64
+        lib.impala_threshold_decode.restype = ctypes.c_int
+        lib.impala_unpack_bits.restype = ctypes.c_int
+        lib.impala_remspot.restype = ctypes.c_int64
         _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """Whether the library builds and loads here."""
+    return get_lib() is not None
 
 
 def require_lib():
@@ -188,3 +199,59 @@ def percolation_mask_phase(phase: np.ndarray, phase_id: int, direction: int):
     if n < 0:
         raise MemoryError("native percolation: allocation failed")
     return active.view(bool), int(n)  # the C side writes 0 or 1
+
+
+# dtype codes of impala_native.cpp's pick_loader
+DTYPE_CODES = {
+    "|u1": 0, "|i1": 1, "<i2": 2, ">i2": 3, "<u2": 4, ">u2": 5,
+    "<i4": 6, ">i4": 7, "<u4": 8, ">u4": 9, "<f4": 10, ">f4": 11,
+    "<f8": 12, ">f8": 13,
+}
+
+
+def threshold_decode(raw: np.ndarray, thr: float, vtrue: int, vfalse: int):
+    """int8 ``raw > thr ? vtrue : vfalse`` of a buffer in any dtype of
+    ``DTYPE_CODES`` (either byte order), or None for another dtype.
+    Raises where the library is unavailable."""
+    lib = require_lib()
+    code = DTYPE_CODES.get(raw.dtype.str)
+    if code is None:
+        return None
+    flat = np.ascontiguousarray(raw).reshape(-1)
+    out = np.empty(flat.shape, np.int8)
+    rc = lib.impala_threshold_decode(
+        _ptr(flat.view(np.uint8), ctypes.c_uint8), ctypes.c_int64(flat.size),
+        ctypes.c_int(code), ctypes.c_double(thr), ctypes.c_int8(vtrue),
+        ctypes.c_int8(vfalse), _ptr(out, ctypes.c_int8),
+    )
+    if rc != 0:
+        raise RuntimeError(f"native threshold_decode failed ({rc})")
+    return out.reshape(raw.shape)
+
+
+def unpack_bits(packed: np.ndarray, n_values: int, fill_order: int = 1):
+    """``n_values`` bits of ``packed`` as 0/1 uint8, MSB first
+    (``fill_order=1``) or LSB first (2).  Raises where the library is
+    unavailable."""
+    lib = require_lib()
+    packed = np.ascontiguousarray(packed, np.uint8)
+    out = np.empty(n_values, np.uint8)
+    lib.impala_unpack_bits(_ptr(packed, ctypes.c_uint8),
+                           ctypes.c_int64(n_values), ctypes.c_int(fill_order),
+                           _ptr(out, ctypes.c_uint8))
+    return out
+
+
+def remspot(phase: np.ndarray):
+    """(filtered int32 phase, number of flipped cells): one pass of the
+    reference's remspot filter.  Raises where the library is
+    unavailable."""
+    lib = require_lib()
+    p = np.ascontiguousarray(phase, np.int32)
+    out = np.empty(p.shape, np.int32)
+    flips = lib.impala_remspot(
+        _ptr(p, ctypes.c_int32), ctypes.c_int64(p.shape[0]),
+        ctypes.c_int64(p.shape[1]), ctypes.c_int64(p.shape[2]),
+        _ptr(out, ctypes.c_int32),
+    )
+    return out, int(flips)

@@ -28,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from ..ops.floodfill import _phase_ok
 from ..ops.flux import deff_integrand_sum
 from ..ops.stencil import make_cell_problem_system
 from ..solve.cg import ResidualHistory
@@ -71,7 +72,8 @@ def effective_diffusivity(
     timings: dict | None = None,
 ) -> EffectiveDiffusivityResult:
     """D_eff tensor of ``phase_id`` in the (X, Y, Z) volume ``phase`` (numpy
-    array or tensor) by periodic homogenisation.
+    array or tensor; a tensor's mask and count are made on its own device,
+    so a phase on the card stays there) by periodic homogenisation.
 
     ``lanes``: ``True`` runs the three cell problems as lockstep lanes
     (``solve/lanes.py``; only with ``method`` "cg" or "pcg" and a refined
@@ -87,12 +89,19 @@ def effective_diffusivity(
         raise ValueError(
             "lanes=True needs method 'cg' or 'pcg' and an inner_dtype "
             f"(got method={method!r}, inner_dtype={inner_dtype})")
+    shape = tuple(phase.shape)
+    n_total = int(np.prod(shape))
     if isinstance(phase, torch.Tensor):
-        phase = phase.cpu().numpy()
-    phase = np.asarray(phase)
-    n_total = int(np.prod(phase.shape))
-    active_np = phase == phase_id
-    n_active = int(active_np.sum())
+        # a tensor's mask is made where it lies, and a tensor on the card
+        # is never copied to the host: the mask moves to ``dev`` (a no-op
+        # where it is already there) and the count is one scalar read
+        with phase_timer(timings, "mask_upload", dev):
+            active = _phase_ok(phase, phase_id).to(dev)
+        n_active = int(torch.sum(active, dtype=torch.int64))
+    else:
+        active_np = np.asarray(phase) == phase_id
+        n_active = int(active_np.sum())
+        active = None
     vf = n_active / n_total
 
     if n_active == 0:
@@ -100,7 +109,7 @@ def effective_diffusivity(
         # (EffectiveDiffusivityHypre.cpp:558-570)
         chis = None
         if return_fields:
-            zeros = torch.zeros(phase.shape, dtype=dtype, device=dev)
+            zeros = torch.zeros(shape, dtype=dtype, device=dev)
             chis = (zeros, zeros, zeros)
         return EffectiveDiffusivityResult(
             deff=np.zeros((3, 3)), converged=True, iterations=(0, 0, 0),
@@ -108,8 +117,9 @@ def effective_diffusivity(
         )
 
     storage = dtype if inner_dtype is None else inner_dtype
-    with phase_timer(timings, "mask_upload", dev):
-        active = torch.from_numpy(active_np).to(dev)
+    if active is None:
+        with phase_timer(timings, "mask_upload", dev):
+            active = torch.from_numpy(active_np).to(dev)
 
     ran_lanes = lanes_ok and (lanes is True or (lanes == "auto" and use_lanes(
         n_total, 3, method, inner_bytes=_itemsize(inner_dtype),

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -117,6 +118,20 @@ def _crop(phase, lo, actual):
                  lo[2]:lo[2] + actual[2]]
 
 
+def _write_chi(plotfile_dir, s_no, size, chi, crop):
+    """One sample's chi snapshot (``rev.write_plotfiles``)."""
+    from ..io.writers import write_volume_hdf5_xdmf
+
+    os.makedirs(plotfile_dir, exist_ok=True)
+    base = os.path.join(plotfile_dir, f"rev_chi_s{s_no}_sz{size}")
+    write_volume_hdf5_xdmf(base, {
+        "chi_x": chi[0].cpu().numpy(),
+        "chi_y": chi[1].cpu().numpy(),
+        "chi_z": chi[2].cpu().numpy(),
+        "phase": crop.astype(np.float64),
+    })
+
+
 def rev_study(
     phase: np.ndarray,
     phase_id: int,
@@ -142,12 +157,11 @@ def rev_study(
     (``solve/batched.py``).  ``False`` runs the sequential multigrid solver
     per crop.  ``"auto"`` (default) decides per same-shape group by crop
     size (``AUTO_BATCH_MAX_CELLS``).  ``device`` (among ``solve_kwargs``):
-    None means CUDA, ``"cpu"`` the CPU.  ``plotfile_dir`` (per-sample chi
-    snapshots) needs the volume writers, which are not ported.
+    None means CUDA, ``"cpu"`` the CPU.  ``plotfile_dir``: write each
+    sample's chi fields there as HDF5 + XDMF (``rev_chi_s<n>_sz<size>``,
+    ``Diffusion.cpp:442-447``; needs h5py); the crops then run on the
+    sequential solver, which returns the fields.
     """
-    if plotfile_dir is not None:
-        raise NotImplementedError(
-            "plotfile_dir needs io/writers.py, which is not ported")
     phase = np.asarray(phase)
     if rng is None:
         rng = np.random.default_rng(12345 + int(num_samples))
@@ -159,8 +173,9 @@ def rev_study(
 
     results = {}
     for actual, idxs in groups.items():
-        if _resolve_batch(batch, actual, len(idxs), solve_kwargs,
-                          method=method, precond=precond):
+        if plotfile_dir is None and _resolve_batch(
+                batch, actual, len(idxs), solve_kwargs, method=method,
+                precond=precond):
             from ..solve.batched import batched_deff
 
             crops = np.stack([_crop(phase, boxes[i][2], actual)
@@ -182,13 +197,17 @@ def rev_study(
                 results[i] = (d, bool(convs[j]))
             continue
         for i in idxs:
+            s_no, size, lo, _ = boxes[i]
+            crop = _crop(phase, lo, actual)
             res = effective_diffusivity(
-                _crop(phase, boxes[i][2], actual), phase_id, eps=eps,
-                maxiter=maxiter, method=method, precond=precond,
-                verbose=max(0, verbose - 1), **solve_kwargs,
+                crop, phase_id, eps=eps, maxiter=maxiter, method=method,
+                precond=precond, verbose=max(0, verbose - 1),
+                return_fields=plotfile_dir is not None, **solve_kwargs,
             )
             d = res.deff if res.converged else np.full((3, 3), math.nan)
             results[i] = (np.asarray(d), res.converged)
+            if plotfile_dir is not None and res.chi is not None:
+                _write_chi(plotfile_dir, s_no, size, res.chi, crop)
 
     out = []
     fh = open(csv_path, "w") if csv_path else None

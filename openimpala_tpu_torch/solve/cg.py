@@ -23,6 +23,10 @@ class SolveResult:
     iterations: object  # 0-d int32 tensor (cg) or int (refinement)
     rel_res: object  # final ||r|| / denom
     converged: object
+    # FGMRES only: the restart depth m it ran with and the Arnoldi steps
+    # of each restart cycle
+    restart: int | None = None
+    cycle_steps: tuple = ()
 
 
 @dataclasses.dataclass

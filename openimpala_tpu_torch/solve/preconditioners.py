@@ -1,15 +1,13 @@
-"""Preconditioners of the main paths (counterpart of
+"""Preconditioners (counterpart of
 ``openimpala_tpu/solve/preconditioners.py``): identity, Jacobi, the
-Chebyshev polynomial, and the Galerkin multigrid V-cycle with
-piecewise-constant transfers and a Chebyshev coarse solve.
+Chebyshev polynomial, the Galerkin multigrid cycle (piecewise-constant or
+trilinear transfers, V- or W-cycle, damped-Jacobi or Chebyshev smoothing,
+a Chebyshev or Jacobi coarse solve) and the rediscretised-mask
+``MultigridPreconditioner`` (``precond="mg"``).
 
 Each class is a frozen dataclass holding tensors; ``__call__`` applies
 M^{-1} r.  Nothing here reads a device value back to the host, so a
-V-cycle queues its work without a synchronisation.
-
-Not ported yet (they raise ``NotImplementedError``): trilinear transfers
-(``transfer="tri"``), the W-cycle (``cycle="w"``), the Chebyshev smoother
-(``smoother="cheby"``) and the rediscretised ``MultigridPreconditioner``.
+cycle queues its work without a synchronisation.
 """
 
 from __future__ import annotations
@@ -23,14 +21,17 @@ import torch
 from ..ops import stencil_cuda
 from ..ops.stencil import (
     _full,
+    _minus_one_bf16,
     _on_cpu,
     _zero,
     apply_code,
     apply_restricted,
     decode_code,
+    pack_code_for,
     residual_restrict,
     residual_restricted,
     smooth_sweep,
+    uniform_w,
 )
 
 _NP_FLOAT = {torch.float32: np.float32, torch.float64: np.float64}
@@ -138,7 +139,8 @@ class ChebyshevPreconditioner:
 
 @dataclasses.dataclass(frozen=True)
 class MGLevel:
-    """The fine level: the packed bf16 geometry and its operator (K1)."""
+    """A level held as packed bf16 geometry and its operator (K1): the
+    fine level of every cycle, and every level of ``precond="mg"``."""
 
     code: torch.Tensor
     w: tuple
@@ -165,6 +167,10 @@ class MGLevel:
     def resid_restrict(self, x, r):
         """blocksum_2x2x2(free ? r - A x : 0) (K1 restrict on the card)."""
         return residual_restrict(x, r, self.code, self.w, self.periodic)
+
+
+def _can_coarsen(shape):
+    return all(s % 2 == 0 and s >= 8 for s in shape)
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +260,65 @@ def _prolong_pc_axes(xc, axes):
     return xc
 
 
+# --- trilinear (cell-centred) transfers: per-axis weights 3/4, 1/4, with
+# the exact transpose as restriction (weight sum 2 per coarse cell, the PC
+# block-sum scaling the conductance operators are built for).  Plain tensor
+# code around K1 resid and K2, as in the JAX package.
+
+
+def _edge(t, axis, last: bool):
+    """The first or last plane of ``t`` along ``axis`` (a view)."""
+    return t.narrow(axis, t.shape[axis] - 1 if last else 0, 1)
+
+
+def _prolong_tri_axis(e, axis, periodic: bool):
+    """One axis of cell-centred trilinear prolongation (nc -> 2nc): even
+    fine = 3/4 e_i + 1/4 e_{i-1}; odd fine = 3/4 e_i + 1/4 e_{i+1}; clamped
+    axes fold the out-of-domain weight onto the edge cell."""
+    lo = torch.roll(e, 1, dims=axis)  # e_{i-1}
+    hi = torch.roll(e, -1, dims=axis)  # e_{i+1}
+    if not periodic:
+        _edge(lo, axis, False).copy_(_edge(e, axis, False))
+        _edge(hi, axis, True).copy_(_edge(e, axis, True))
+    st = torch.stack([0.75 * e + 0.25 * lo, 0.75 * e + 0.25 * hi],
+                     dim=axis + 1)
+    shape = list(e.shape)
+    shape[axis] *= 2
+    return st.reshape(shape)
+
+
+def _restrict_tri_axis(f, axis, periodic: bool):
+    """Exact transpose of ``_prolong_tri_axis`` (2nc -> nc)."""
+    ev = _pairsel(f, axis, 0)
+    od = _pairsel(f, axis, 1)
+    od_m1 = torch.roll(od, 1, dims=axis)  # od_{i-1}
+    ev_p1 = torch.roll(ev, -1, dims=axis)  # ev_{i+1}
+    if not periodic:
+        # transpose of the clamped fold-in: zero the wrapped plane, then
+        # credit the folded weight to the edge coarse cells
+        _edge(od_m1, axis, False).zero_()
+        lo_fix = 0.25 * _edge(ev, axis, False)
+        _edge(ev_p1, axis, True).zero_()
+        hi_fix = 0.25 * _edge(od, axis, True)
+    out = 0.75 * (ev + od) + 0.25 * (od_m1 + ev_p1)
+    if not periodic:
+        _edge(out, axis, False).add_(lo_fix)
+        _edge(out, axis, True).add_(hi_fix)
+    return out
+
+
+def _prolong_tri(xc, periodic):
+    for ax in range(3):
+        xc = _prolong_tri_axis(xc, ax, periodic[ax])
+    return xc
+
+
+def _restrict_tri(xf, periodic):
+    for ax in range(3):
+        xf = _restrict_tri_axis(xf, ax, periodic[ax])
+    return xf
+
+
 def fine_conductances(system) -> ConductanceLevel:
     """The fine StencilSystem as a ConductanceLevel (seeds the Galerkin
     coarsening; level-0 smoothing keeps the packed operator and K1)."""
@@ -314,15 +379,21 @@ def _build_hierarchy(system, schedule: tuple):
 
 @dataclasses.dataclass(frozen=True)
 class GalerkinMGPreconditioner:
-    """V-cycle on the Galerkin (face-conductance) hierarchy.
+    """Multigrid cycle on the Galerkin (face-conductance) hierarchy.
 
     Level 0 smooths with the packed fine operator (K1 sweep, K1 restrict or
-    resid), deeper levels with ConductanceLevel (K2).  Damped-Jacobi
-    smoothing with symmetric pre/post sweeps keeps the cycle a fixed
-    symmetric operator, so it is a valid CG preconditioner.  The coarsest
-    level takes one Chebyshev solve (``coarse_solver="cheby"``, degree and
-    interval auto-scaled in ``from_system``) or ``coarse_sweeps`` Jacobi
-    sweeps (``"jacobi"``).
+    resid; K1 matvec under the Chebyshev smoother), deeper levels with
+    ConductanceLevel (K2).  Symmetric pre/post smoothing keeps the cycle a
+    fixed symmetric operator, so it is a valid CG preconditioner.
+
+    ``smoother``: ``"jacobi"`` (damped Jacobi) or ``"cheby"`` (a
+    degree-``nu`` Chebyshev polynomial on [2.2/6, 2.2] of D^-1 A).
+    ``transfer``: ``"pc"`` (piecewise constant, R = P^T block sum) or
+    ``"tri"`` (cell-centred trilinear; needs full coarsening).  ``cycle``:
+    ``"v"``, or ``"w"``, which visits each level down to ``w_depth`` twice.
+    The coarsest level takes one Chebyshev solve (``coarse_solver=
+    "cheby"``, degree and interval auto-scaled in ``from_system``) or
+    ``coarse_sweeps`` smoothing steps (``"jacobi"``).
     """
 
     fine: MGLevel
@@ -334,6 +405,7 @@ class GalerkinMGPreconditioner:
     smoother: str = "jacobi"
     transfer: str = "pc"
     cycle: str = "v"
+    w_depth: int = 2
     coarse_solver: str = "cheby"
     coarse_ratio: float = 4000.0
     schedule: tuple = ()
@@ -343,17 +415,13 @@ class GalerkinMGPreconditioner:
     SEMI_THRESHOLD = 2.0
 
     def __post_init__(self):
-        if self.smoother != "jacobi":
-            raise NotImplementedError(
-                f"smoother={self.smoother!r} is not ported; use 'jacobi'")
-        if self.transfer != "pc":
-            raise NotImplementedError(
-                f"transfer={self.transfer!r} is not ported; use 'pc'")
-        if self.cycle != "v":
-            raise NotImplementedError(
-                f"cycle={self.cycle!r} is not ported; use 'v'")
-        if self.coarse_solver not in ("cheby", "jacobi"):
-            raise ValueError(f"unknown coarse_solver {self.coarse_solver!r}")
+        for name, allowed in (("smoother", ("jacobi", "cheby")),
+                              ("transfer", ("pc", "tri")),
+                              ("cycle", ("v", "w")),
+                              ("coarse_solver", ("cheby", "jacobi"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"unknown {name} {getattr(self, name)!r}; "
+                                 f"expected one of {allowed}")
 
     @staticmethod
     def _schedule_for(shape, w, max_levels: int):
@@ -395,6 +463,12 @@ class GalerkinMGPreconditioner:
         for axes in schedule:
             for a in axes:
                 shape[a] //= 2
+        if kw.get("transfer") == "tri" and any(
+                a != (0, 1, 2) for a in schedule):
+            raise ValueError(
+                "transfer='tri' requires full coarsening at every level; "
+                f"the derived schedule {schedule} semi-coarsens (anisotropic "
+                "spacing) — use the default 'pc' transfers")
         levels = _build_hierarchy(system, schedule) if schedule else ()
         kw["schedule"] = schedule
         if kw.get("coarse_solver", "cheby") == "cheby":
@@ -409,6 +483,8 @@ class GalerkinMGPreconditioner:
 
     # -- smoothing ---------------------------------------------------------
     def _smooth(self, apply_fn, diag, free, x, r, n: int):
+        if self.smoother == "cheby":
+            return self._smooth_cheby(apply_fn, diag, free, x, r, n)
         inv_d = torch.where(
             free, _full(self.omega, r.dtype, r.device)
             / torch.where(diag > 0, diag, 1.0),
@@ -451,10 +527,15 @@ class GalerkinMGPreconditioner:
         return x
 
     def _fine_smooth(self, x, r, n: int):
-        """``n`` damped-Jacobi sweeps on the fine level; ``x=None`` starts
-        from zero, where the first sweep is the elementwise
-        ``(omega/diag) * r``."""
+        """``n`` damped-Jacobi sweeps on the fine level (K1 sweep);
+        ``x=None`` starts from zero, where the first sweep is the
+        elementwise ``(omega/diag) * r``.  The Chebyshev smoother applies
+        the operator instead (K1 matvec)."""
         fine = self.fine
+        if self.smoother == "cheby":
+            diag, free = fine.decode(r.dtype)
+            x0 = torch.zeros_like(r) if x is None else x
+            return self._smooth_cheby(fine.apply, diag, free, x0, r, n)
         if x is None:
             diag, free = fine.decode(r.dtype)
             inv_d = torch.where(
@@ -483,7 +564,10 @@ class GalerkinMGPreconditioner:
                                     torch.zeros_like(r), r,
                                     self.coarse_sweeps)
             x = self._fine_smooth(None, r, self.nu1)
-            if self._axes(0) != (0, 1, 2):
+            if self.transfer == "tri":
+                # K1 resid, then the trilinear restriction as tensor code
+                rc = _restrict_tri(self.fine.resid(x, r), self.fine.periodic)
+            elif self._axes(0) != (0, 1, 2):
                 # semi-coarsened first level: resid, then block-sum over
                 # the coarsened axes only
                 rc = _blocksum_axes(self.fine.resid(x, r), self._axes(0))
@@ -508,11 +592,17 @@ class GalerkinMGPreconditioner:
                                 self.coarse_sweeps)
 
         x = self._cond_smooth(lvl, diag, free, None, r, self.nu1)
-        resid = torch.where(free, r - lvl.apply(x), _zero(r))
-        rc = _blocksum_axes(resid, self._axes(idx))  # R = P^T (sum)
-        rc = torch.where(self.levels[idx].free, rc, _zero(r))
-        ec = self._vcycle(idx + 1, rc)
-        x = x + torch.where(free, self._prolong(ec, idx), _zero(r))
+        # the W-cycle corrects twice on the levels down to w_depth
+        n_corr = 2 if (self.cycle == "w" and idx <= self.w_depth) else 1
+        for _ in range(n_corr):
+            resid = torch.where(free, r - lvl.apply(x), _zero(r))
+            if self.transfer == "tri":
+                rc = _restrict_tri(resid, self.fine.periodic)
+            else:
+                rc = _blocksum_axes(resid, self._axes(idx))  # R = P^T (sum)
+            rc = torch.where(self.levels[idx].free, rc, _zero(r))
+            ec = self._vcycle(idx + 1, rc)
+            x = x + torch.where(free, self._prolong(ec, idx), _zero(r))
         return self._cond_smooth(lvl, diag, free, x, r, self.nu2)
 
     def _axes(self, idx: int) -> tuple:
@@ -520,11 +610,17 @@ class GalerkinMGPreconditioner:
         return self.schedule[idx] if idx < len(self.schedule) else (0, 1, 2)
 
     def _prolong(self, ec, idx: int):
+        if self.transfer == "tri":
+            return _prolong_tri(ec, self.fine.periodic)
         return _prolong_pc_axes(ec, self._axes(idx))
 
     def _cond_smooth(self, lvl, diag, free, x, r, n: int):
         """Coarse-level damped-Jacobi sweeps (K2 sweep on the card);
-        ``x=None`` starts from zero with the elementwise first sweep."""
+        ``x=None`` starts from zero with the elementwise first sweep.  The
+        Chebyshev smoother applies the level's operator (K2 matvec)."""
+        if self.smoother == "cheby":
+            x0 = torch.zeros_like(r) if x is None else x
+            return self._smooth_cheby(lvl.apply, diag, free, x0, r, n)
         if x is None:
             inv_d = torch.where(
                 free,
@@ -540,3 +636,103 @@ class GalerkinMGPreconditioner:
 
     def __call__(self, r):
         return self._vcycle(0, r)
+
+
+# ---------------------------------------------------------------------------
+# Rediscretised-mask geometric multigrid (the "mg" preconditioner; stands in
+# for Hypre SMG/PFMG, reference TortuosityHypre.cpp:671-678).  Coarsening by
+# 2 in all axes while every extent is even and >= 8; a coarse cell is free if
+# ANY of its 2x2x2 children is free, and its code is rediscretised on the
+# coarse mask with w/4 per level; full-weighting restriction, piecewise-
+# constant prolongation, damped-Jacobi smoothing with symmetric pre/post
+# counts.  Every level is an MGLevel, so on the card every level runs K1:
+# sweep on all of them, restrict on all but the coarsest.
+# ---------------------------------------------------------------------------
+
+
+def _pairany(m, axis):
+    shape = list(m.shape)
+    shape[axis:axis + 1] = [shape[axis] // 2, 2]
+    return m.reshape(shape).any(dim=axis + 1)
+
+
+def _restrict(x):
+    """Full weighting: the 2x2x2 block mean."""
+    return _blocksum_axes(x, (0, 1, 2)) * 0.125
+
+
+def _prolong(xc):
+    return _prolong_pc_axes(xc, (0, 1, 2))
+
+
+def _coarsen_free(free):
+    return _pairany(_pairany(_pairany(free, 2), 1), 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultigridPreconditioner:
+    """Geometric multigrid V-cycle on rediscretised masks.
+
+    ``levels`` is a tuple of MGLevel from fine to coarse; smoothing is
+    damped Jacobi (K1 sweep) with symmetric pre/post counts, so the cycle
+    is a fixed symmetric operator and PCG stays valid.
+    """
+
+    levels: Tuple[MGLevel, ...]
+    nu1: int = 2
+    nu2: int = 2
+    omega: float = 0.8
+    coarse_sweeps: int = 30
+
+    @classmethod
+    def from_system(cls, system, max_levels: int = 10, **kw):
+        periodic_cell = bool(system.periodic[0])  # cell problem: all-periodic
+        levels = [MGLevel(code=system.code, w=system.w,
+                          periodic=system.periodic)]
+        free = system.free
+        w = system.w
+        while len(levels) < max_levels and _can_coarsen(tuple(free.shape)):
+            free = _coarsen_free(free)
+            w = tuple(wi / 4.0 for wi in w)  # dx doubles (aniso preserved)
+            if periodic_cell:
+                code_free = 6 if uniform_w(w) else 2 * 16 + 2 * 4 + 2
+                code = torch.where(free, _full(code_free, torch.bfloat16,
+                                               free.device),
+                                   _minus_one_bf16(free.device))
+            else:
+                # rediscretise: count free neighbours on the coarse mask
+                code = pack_code_for(w, free, free, system.periodic)
+            levels.append(MGLevel(code=code, w=w, periodic=system.periodic))
+        return cls(levels=tuple(levels), **kw)
+
+    def _smooth(self, level: MGLevel, x, r, n: int):
+        """``n`` damped-Jacobi sweeps ``x + inv_d (r - A x)``, the JAX
+        package's loop body, which is K1 sweep's function."""
+        for _ in range(n):
+            x = level.sweep(x, r, self.omega)
+        return x
+
+    def _vcycle(self, idx: int, r):
+        level = self.levels[idx]
+        x = torch.zeros_like(r)
+        if idx == len(self.levels) - 1:
+            return self._smooth(level, x, r, self.coarse_sweeps)
+        x = self._smooth(level, x, r, self.nu1)
+        # full weighting = the block sum of the residual (K1 restrict, one
+        # pass) times 1/8, exact in binary
+        rc = level.resid_restrict(x, r) * 0.125
+        coarse = self.levels[idx + 1]
+        rc = torch.where(coarse.free, rc, _zero(r))
+        ec = self._vcycle(idx + 1, rc)
+        x = x + torch.where(level.free, _prolong(ec), _zero(r))
+        return self._smooth(level, x, r, self.nu2)
+
+    def __call__(self, r):
+        return self._vcycle(0, r)
+
+
+def make_multigrid_preconditioner(system, nu1: int = 2, nu2: int = 2,
+                                  omega: float = 0.8, coarse_sweeps: int = 30):
+    """Return the rediscretised-mask V-cycle preconditioner."""
+    return MultigridPreconditioner.from_system(
+        system, nu1=nu1, nu2=nu2, omega=omega, coarse_sweeps=coarse_sweeps)

@@ -20,21 +20,26 @@ import torch
 
 from ..utils.profiling import phase_timer
 from .cg import SolveResult, cg
+from .fgmres import fgmres
 from .preconditioners import (
     ChebyshevPreconditioner,
     GalerkinMGPreconditioner,
     JacobiPreconditioner,
+    MultigridPreconditioner,
 )
 from .sa import SAMGPreconditioner
 
 
 def _krylov(method: str, system, r0, denom, eps, maxiter, precond,
-            verbose: int = 0, history=None):
+            refined: bool = True, verbose: int = 0, history=None):
     if method in ("cg", "pcg"):
         return cg(system, r0, denom, eps, maxiter, precond=precond,
                   verbose=verbose, history=history)
     if method in ("flexgmres", "gmres", "fgmres"):
-        raise NotImplementedError("FGMRES is not ported yet; use method='cg'")
+        # the FGMRES plateau break is only safe where a refinement outer
+        # loop exists to re-scale the residual and continue (``refined``)
+        return fgmres(system, r0, denom, eps, maxiter, precond=precond,
+                      stall_break=refined, verbose=verbose, history=history)
     raise ValueError(f"unknown Krylov method: {method}")
 
 
@@ -66,9 +71,9 @@ def _accumulate(z_total, scale, z):
 
 
 def make_precond(sys_, precond, opts=None):
-    """``"auto"`` (= ``"gmg"``), ``"gmg"``, ``"sa"`` (= ``"samg"``),
-    ``"cheby"`` (= ``"chebyshev"``), ``"jacobi"`` or ``"none"``; any other
-    name raises.  A preconditioner that is already built (a callable
+    """``"auto"`` (= ``"gmg"``), ``"gmg"``, ``"mg"``, ``"sa"`` (=
+    ``"samg"``), ``"cheby"`` (= ``"chebyshev"``), ``"jacobi"`` or
+    ``"none"``; any other name raises.  A preconditioner that is already built (a callable
     ``r -> z``) is returned as it is."""
     opts = opts or {}
     if precond is not None and not isinstance(precond, str):
@@ -86,8 +91,7 @@ def make_precond(sys_, precond, opts=None):
     if precond in ("cheby", "chebyshev"):
         return ChebyshevPreconditioner.from_system(sys_, **opts)
     if precond == "mg":
-        raise NotImplementedError(
-            f"preconditioner {precond!r} is not ported yet")
+        return MultigridPreconditioner.from_system(sys_, **opts)
     raise ValueError(f"unknown preconditioner: {precond!r}")
 
 
@@ -113,7 +117,7 @@ def solve_system(system, x0_free, eps: float, maxiter: int,
         r0 = system.initial_residual(x0_free.to(storage_dtype))
         res = _krylov(method, system, r0, system.b_norm, eps, maxiter,
                       make_precond(system, precond, precond_opts),
-                      verbose=verbose, history=history)
+                      refined=False, verbose=verbose, history=history)
         x_full = system.assemble_solution(x0_free + res.z)
         return x_full, res
 
@@ -166,7 +170,8 @@ def solve_system(system, x0_free, eps: float, maxiter: int,
             inner = _krylov(method, system, r_lo,
                             torch.ones((), dtype=inner_dtype, device=device),
                             round_eps, min(budget, int(inner_round_cap)),
-                            M_lo, verbose=verbose, history=history)
+                            M_lo, refined=True, verbose=verbose,
+                            history=history)
             z_total = _accumulate(z_total, scale, inner.z)
             n_it = int(inner.iterations)
             total_iters += n_it

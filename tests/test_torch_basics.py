@@ -128,6 +128,9 @@ def test_volume_fraction_matches_jax(blob_phase):
 
 def test_import_leaves_jax_out():
     code = ("import sys, openimpala_tpu_torch; "
+            "import openimpala_tpu_torch.diffusion, openimpala_tpu_torch.config; "
+            "import openimpala_tpu_torch.io.native; "
+            "import openimpala_tpu_torch.solve.fgmres; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'openimpala_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -118,5 +118,9 @@ def test_solve_system_refinement_matches_jax():
     assert bool(info_d.converged)
     np.testing.assert_allclose(x_d.numpy(), np.asarray(x_j), rtol=1e-7,
                                atol=1e-7)
-    with pytest.raises(NotImplementedError):
-        PR.solve_system(ps, x0p, eps=1e-9, maxiter=10, method="fgmres")
+    # restarted FGMRES on the same system reaches the same solution
+    x_g, info_g = PR.solve_system(ps, x0p, eps=1e-9, maxiter=2000,
+                                  method="fgmres", precond="gmg")
+    assert info_g.converged and x_g.dtype == torch.float64
+    np.testing.assert_allclose(x_g.numpy(), np.asarray(x_j), rtol=1e-7,
+                               atol=1e-7)

@@ -501,3 +501,174 @@ def test_tortuosity_percolation_on_card(cuda):
         assert gpu.active_vf == cpu.active_vf
         assert ("phase_upload" in t) == (want == "device")
         assert abs(gpu.value - cpu.value) <= 1e-6 * abs(cpu.value)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind,dx", [("flow", (1.0, 1.0, 1.0)),
+                                     ("flow", (1.0, 1.0, 2.0)),
+                                     ("cell", (1.0, 1.0, 1.0)),
+                                     ("cell", (1.0, 1.0, 2.0))])
+def test_k1_on_mg_hierarchy_levels(cuda, kind, dx, dtype):
+    """K1 on every level of ``precond="mg"``'s hierarchy, 32^3 down to 4^3
+    (periodic wraps on 4-long axes; the constant codes 6 and 42 of the
+    periodic cell problem; coarse free cells that pack to 0), against the
+    plain forms; the codes equal the CPU build's bit for bit; one cycle
+    against the CPU in float64."""
+    from openimpala_tpu_torch.solve.preconditioners import (
+        MultigridPreconditioner)
+
+    shape = (32, 32, 32)
+    gpu = MultigridPreconditioner.from_system(
+        _system(kind, shape, dx, dtype, cuda))
+    cpu = MultigridPreconditioner.from_system(
+        _system(kind, shape, dx, dtype, "cpu"))
+    assert [tuple(lv.code.shape) for lv in gpu.levels] == [
+        (32,) * 3, (16,) * 3, (8,) * 3, (4,) * 3]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    for lv, lc in zip(gpu.levels, cpu.levels):
+        assert torch.equal(lv.code.cpu().view(torch.int16),
+                           lc.code.view(torch.int16))
+        code, w, per = lv.code, lv.w, lv.periodic
+        n = tuple(code.shape)
+        x = torch.where(lv.free, torch.randn(n, generator=g, dtype=dtype,
+                                             device=cuda), 0.0)
+        r = torch.where(lv.free, torch.randn(n, generator=g, dtype=dtype,
+                                             device=cuda), 0.0)
+        sc.reset_counts()
+        torch.testing.assert_close(lv.apply(x),
+                                   st.apply_code_plain(x, code, w, per),
+                                   **TOL[dtype])
+        torch.testing.assert_close(lv.sweep(x, r, 0.8),
+                                   st.smooth_sweep_plain(x, r, code, w, per,
+                                                         0.8), **TOL[dtype])
+        torch.testing.assert_close(lv.resid(x, r),
+                                   st.residual_restricted_plain(x, r, code,
+                                                                w, per),
+                                   **TOL[dtype])
+        torch.testing.assert_close(lv.resid_restrict(x, r),
+                                   st.residual_restrict_plain(x, r, code, w,
+                                                              per),
+                                   **TOL[dtype])
+        # a free-packed cell with no free neighbour (code 0) is not free:
+        # the sweep leaves it as it was
+        zero = code == 0
+        assert torch.equal(lv.sweep(x, r, 0.8)[zero], x[zero])
+        assert {k[2] for k in sc.launches_route_at} == {n}
+    codes = {float(v) for v in gpu.levels[-1].code.float().unique()}
+    if kind == "cell":
+        assert codes <= {-1.0, 6.0 if dx[2] == 1.0 else 42.0}
+    if dtype == torch.float64:
+        r = torch.where(cpu.levels[0].free, torch.from_numpy(
+            np.random.default_rng(4).standard_normal(shape)), 0.0)
+        sc.reset_counts()
+        torch.testing.assert_close(gpu(r.to(cuda)).cpu(), cpu(r), rtol=1e-10,
+                                   atol=1e-10)
+        assert {k[2] for k in sc.launches_route_at} == {
+            (32,) * 3, (16,) * 3, (8,) * 3, (4,) * 3}
+        assert not any(k.startswith("k2_") for k in sc.launches)
+        assert not sc.plain_on_cuda
+
+
+@pytest.mark.parametrize("opts", [{"transfer": "tri"}, {"cycle": "w"},
+                                  {"smoother": "cheby"}])
+@pytest.mark.parametrize("kind", ["flow", "cell"])
+def test_galerkin_options_gpu_match_cpu(cuda, kind, opts):
+    """One cycle of each option of the default cycle on the card against
+    the CPU in float64; the Chebyshev smoother launches no sweep kernel."""
+    shape = (24, 16, 32)
+    gpu = GalerkinMGPreconditioner.from_system(
+        _system(kind, shape, (1.0, 1.0, 1.0), torch.float64, cuda), **opts)
+    cpu = GalerkinMGPreconditioner.from_system(
+        _system(kind, shape, (1.0, 1.0, 1.0), torch.float64, "cpu"), **opts)
+    r = torch.where(cpu.fine.free, torch.from_numpy(
+        np.random.default_rng(5).standard_normal(shape)), 0.0)
+    sc.reset_counts()
+    torch.testing.assert_close(gpu(r.to(cuda)).cpu(), cpu(r), rtol=1e-10,
+                               atol=1e-10)
+    assert not sc.plain_on_cuda and sc.launches["k2_matvec_f64"] > 0
+    if opts.get("smoother") == "cheby":
+        assert not any("sweep" in k for k in sc.launches)
+        assert sc.launches["k1_matvec_f64"] > 0
+    else:
+        assert sc.launches["k1_sweep_f64"] > 0
+    if opts.get("transfer") == "tri":
+        assert sc.launches["k1_resid_f64"] > 0
+        assert "k1_restrict_f64" not in sc.launches
+
+
+@pytest.mark.parametrize("precond", ["gmg", "jacobi"])
+@pytest.mark.parametrize("kind", ["flow", "cell"])
+def test_fgmres_cycle_gpu_matches_cpu(cuda, kind, precond):
+    """One FGMRES restart cycle on the card against the CPU in float64:
+    the same Arnoldi steps, z and r to 1e-10."""
+    from openimpala_tpu_torch.solve import fgmres as pf
+    from openimpala_tpu_torch.solve.refine import make_precond
+
+    shape = (24, 20, 16)
+    out = {}
+    for dev in (cuda, "cpu"):
+        s = _system(kind, shape, (1.0, 1.0, 1.0), torch.float64, dev)
+        r0 = (s.initial_residual(torch.zeros(shape, dtype=torch.float64,
+                                             device=dev))
+              if kind == "flow" else s.r0_b)
+        sc.reset_counts()
+        out[str(dev)] = pf._arnoldi_cycle(s, make_precond(s, precond),
+                                          torch.zeros_like(r0), r0, r0,
+                                          0.0, 12)
+        if dev == cuda:
+            assert sc.launches["k1_matvec_f64"] >= 12
+            assert not sc.plain_on_cuda
+    (zg, rg, ng, kg), (zc, rc, nc, kc) = out["cuda"], out["cpu"]
+    assert kg == kc == 12
+    torch.testing.assert_close(zg.cpu(), zc, rtol=1e-10, atol=1e-10)
+    torch.testing.assert_close(rg.cpu(), rc, rtol=1e-10, atol=1e-10)
+    assert abs(float(ng) - float(nc)) <= 1e-10 * max(1.0, float(nc))
+
+
+@pytest.mark.parametrize("kw", [{"precond": "mg"},
+                                {"precond_opts": {"transfer": "tri"}},
+                                {"precond_opts": {"cycle": "w"}},
+                                {"precond_opts": {"smoother": "cheby"}},
+                                {"method": "fgmres"}, {"method": "gmres",
+                                                       "precond": "mg"}])
+def test_slice_solvers_gpu_match_cpu(cuda, kw):
+    vol = (np.random.default_rng(7).random((24, 20, 16)) < 0.65).astype(
+        np.int32)
+    sc.reset_counts()
+    gpu = tortuosity(vol, 1, "X", device=cuda, **kw)
+    assert gpu.converged and not sc.plain_on_cuda
+    if kw.get("precond") == "mg":
+        assert not any(k.startswith("k2_") for k in sc.launches)
+    cpu = tortuosity(vol, 1, "X", device="cpu", **kw)
+    assert abs(gpu.value - cpu.value) <= 1e-6 * abs(cpu.value)
+    assert abs(gpu.iterations - cpu.iterations) <= 2
+
+
+def test_effective_diffusivity_keeps_a_cuda_phase_on_the_card(
+        cuda, monkeypatch):
+    """A phase on the card is masked and counted there: no copy of it to
+    the host, and the tensor of a numpy phase."""
+    vol = (np.random.default_rng(7).random((20, 18, 16)) < 0.65).astype(
+        np.int32)
+    phase = torch.from_numpy(vol).to(cuda)
+    copied = []
+    for name in ("cpu", "to", "numpy"):
+        orig = getattr(torch.Tensor, name)
+
+        def spy(self, *a, _orig=orig, _name=name, **kw):
+            out = _orig(self, *a, **kw)
+            if self.data_ptr() == phase.data_ptr() and (
+                    not isinstance(out, torch.Tensor) or not out.is_cuda):
+                copied.append(_name)
+            return out
+
+        monkeypatch.setattr(torch.Tensor, name, spy)
+    sc.reset_counts()
+    got = effective_diffusivity(phase, 1, precond="mg", device=cuda)
+    monkeypatch.undo()
+    assert not copied and not sc.plain_on_cuda
+    want = effective_diffusivity(vol, 1, precond="mg", device=cuda)
+    assert got.volume_fraction == want.volume_fraction == float(
+        (vol == 1).mean())
+    np.testing.assert_array_equal(got.deff, want.deff)
+    assert got.iterations == want.iterations

@@ -133,12 +133,22 @@ def test_jacobi_and_identity_match_jax():
 
 
 def test_unported_options_raise():
+    """The options that raised before they were ported now build (their
+    cycles are held against the JAX package in tests/test_torch_mg.py);
+    unknown names raise."""
     _, ps = _systems("flow", (16, 16, 16), (1.0, 1.0, 1.0))
     for opts in ({"transfer": "tri"}, {"cycle": "w"}, {"smoother": "cheby"}):
-        with pytest.raises(NotImplementedError):
-            PP.GalerkinMGPreconditioner.from_system(ps, **opts)
-    with pytest.raises(NotImplementedError):
-        make_precond(ps, "mg")
+        m = PP.GalerkinMGPreconditioner.from_system(ps, **opts)
+        (name, value), = opts.items()
+        assert getattr(m, name) == value and m.w_depth == 2
+        y = m(torch.where(ps.free, torch.ones((16, 16, 16),
+                                              dtype=torch.float64), 0.0))
+        assert bool(torch.isfinite(y).all())
+    mg = make_precond(ps, "mg")
+    assert isinstance(mg, PP.MultigridPreconditioner)
+    assert [tuple(lv.code.shape) for lv in mg.levels] == [
+        (16, 16, 16), (8, 8, 8), (4, 4, 4)]
+    assert (mg.nu1, mg.nu2, mg.omega, mg.coarse_sweeps) == (2, 2, 0.8, 30)
     cheby = make_precond(ps, "cheby", {"degree": 4})
     assert isinstance(cheby, PP.ChebyshevPreconditioner)
     assert cheby.degree == 4 and cheby.diag.shape == ps.code.shape

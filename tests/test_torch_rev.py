@@ -230,7 +230,27 @@ def test_rev_study_mixed_shapes_and_batch_true(rev_volume):
         np.testing.assert_allclose(g.deff, w.deff, rtol=0, atol=1e-6)
 
 
-def test_rev_study_refuses_plotfiles(rev_volume):
-    with pytest.raises(NotImplementedError, match="writers"):
-        PRV.rev_study(rev_volume, 1, sizes=(16,), plotfile_dir="out",
-                      device="cpu")
+def test_rev_study_refuses_plotfiles(rev_volume, tmp_path):
+    """``plotfile_dir`` (once refused) writes each sample's chi fields as
+    the JAX package does: the crops run on the sequential solver, the same
+    rows, and one HDF5 + XDMF pair per sample with the same datasets."""
+    h5py = pytest.importorskip("h5py")
+    kw = dict(sizes=(16,), num_samples=2)
+    want = JR.rev_study(rev_volume, 1, plotfile_dir=str(tmp_path / "jax"),
+                        **kw)
+    got = PRV.rev_study(rev_volume, 1, plotfile_dir=str(tmp_path / "port"),
+                        device="cpu", **kw)
+    for g, w in zip(got, want):
+        assert g.converged == w.converged is True
+        np.testing.assert_allclose(g.deff, w.deff, rtol=0, atol=1e-6)
+        base = f"rev_chi_s{g.sample_no}_sz{g.size_target}"
+        with h5py.File(tmp_path / "port" / f"{base}.h5") as fp, \
+                h5py.File(tmp_path / "jax" / f"{base}.h5") as fj:
+            assert sorted(fp) == sorted(fj) == ["chi_x", "chi_y", "chi_z",
+                                                "phase"]
+            np.testing.assert_array_equal(fp["phase"][()], fj["phase"][()])
+            for name in ("chi_x", "chi_y", "chi_z"):
+                np.testing.assert_allclose(fp[name][()], fj[name][()],
+                                           rtol=0, atol=1e-6)
+        assert (tmp_path / "port" / f"{base}.xmf").read_text() == (
+            tmp_path / "jax" / f"{base}.xmf").read_text()

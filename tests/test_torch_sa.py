@@ -275,8 +275,8 @@ def test_make_precond_names(built):
         m = PR.make_precond(small, name, {"cycle": "w", "coarse_sweeps": 5})
         assert isinstance(m, PSA.SAMGPreconditioner)
         assert (m.cycle, m.coarse_sweeps, len(m.levels)) == ("w", 5, 1)
-    with pytest.raises(NotImplementedError):
-        PR.make_precond(small, "mg")
+    assert isinstance(PR.make_precond(small, "mg"),
+                      PP.MultigridPreconditioner)
     for name in ("cheby", "chebyshev"):
         assert isinstance(PR.make_precond(small, name),
                           PP.ChebyshevPreconditioner)

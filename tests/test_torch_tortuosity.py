@@ -66,6 +66,24 @@ def test_zero_percolation_gives_nan():
     assert not got.converged and got.iterations == 0
 
 
+@pytest.mark.parametrize("shape,direction", [
+    ((1, 20, 20), "X"), ((20, 1, 20), "Y"), ((20, 20, 1), "Z")])
+def test_one_cell_thick_along_the_flow_matches_jax(shape, direction):
+    """A volume one cell thick along the flow: both face planes are the
+    same plane, so both face fluxes are 0 and tau is inf (the JAX package
+    clamps the inner-plane index to the axis)."""
+    phase = (np.random.default_rng(3).random(shape) < 0.8).astype(np.int32)
+    want = oi.tortuosity(phase, 1, direction, mesh=None)
+    got = oit.tortuosity(phase, 1, direction, device="cpu")
+    assert got.value == want.value == np.inf
+    assert got.deff == want.deff == 0.0
+    assert got.active_vf == want.active_vf
+    assert got.converged == want.converged is True
+    assert got.flux_conserved == want.flux_conserved is True
+    assert (got.flux_in, got.flux_out) == (want.flux_in, want.flux_out)
+    assert got.iterations == want.iterations
+
+
 def test_fields_history_and_timings(blob_phase):
     timings = {}
     got = oit.tortuosity(blob_phase, 1, "Z", device="cpu",
