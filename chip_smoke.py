@@ -6,8 +6,11 @@
 Phases (each failure exits non-zero and prints no result line):
 
 1. card      - the card's name and power limit (nvidia-smi), the versions,
-               and the build of the CUDA kernels from ``csrc/`` (ptxas
-               register and spill report, kept beside each library);
+               and the build of the CUDA kernels from ``csrc/`` by the
+               solver warm-up's thread (``solve/warmup.py``), started
+               before the volume is made and joined here (its build, load,
+               launch and join seconds; ptxas register and spill report,
+               kept beside each library);
 2. kernels   - every K1 mode (matvec, matvec+dot, resid, sweep, restrict)
                in float32 and float64 and both K2 modes, held against their
                plain PyTorch versions on odd, restrict-eligible, periodic and
@@ -54,7 +57,9 @@ Phases (each failure exits non-zero and prints no result line):
                to 4^3 (each extent must see K1, K2 must not launch); with
                the default cycle's options ``transfer="tri"``, ``cycle="w"``
                and ``smoother="cheby"`` (the last must launch no sweep
-               kernel); and the port's CLI in-process on a uint8 RAW file
+               kernel) on a 256^3 volume of the same recipe, beside the
+               default-path call there (``OPTION_N``); and the port's CLI
+               in-process on a uint8 RAW file
                of the volume (flow_through, X, solver_type = GMRES: FGMRES
                with the default cycle), whose ``results.txt`` is parsed
                back (its VolumeFraction must be ``volume_fraction``'s; the
@@ -82,7 +87,27 @@ Phases (each failure exits non-zero and prints no result line):
                diffusivity`` logs whether the lockstep lanes ran (required
                where ``use_lanes`` admits the volume on this card) and is
                run again with ``lanes=False``: the tensors must agree to
-               1e-9 and the iterations to 1 per direction;
+               1e-9 and the iterations to 1 per direction.  Every path
+               runs its PCG iterations as CUDA graphs, as its entry point
+               does (``utils/graphs.py``), logs ``graph: captures=,
+               replays=, capture_s=``, and is run again as its eager twin
+               (``graphs._eager_twin``): its result and iterations must be
+               equal bit for bit, and every launch counter equal; the
+               results recorded before the iterations were graphed
+               (``EAGER_RECORD``) are printed beside.  The CLI path's
+               FGMRES stays eager (no capture, no twin), and its early
+               warm-up must start no thread: the kernels are loaded.
+               Last, ``main[direct]``: ``tortuosity_direct`` on a 48^3
+               blobs volume (porosity 0.6, X, eps 1e-6), each check a
+               replay of one graph, held against the JAX package's value
+               (``DIRECT_JAX``) to 1e-6 with the steps within one check;
+               its first ``DIRECT_TWIN_CHECKS`` checks graphed against
+               their eager twin, fields bit for bit; wall and steps per
+               second;
+4b. graph    - at 128^3, ``tortuosity`` (default and ``sa``), the lanes of
+               ``effective_diffusivity`` and ``rev_study`` (16 crops of
+               64^3), graphed against the eager twin: results, iterations
+               and every launch counter equal;
 5. parity    - the same call at 64^3 on the GPU and on the CPU:
                ``tortuosity`` with the default and with the ``sa``
                preconditioner, with ``mg`` (in float64, where the
@@ -249,6 +274,52 @@ CHEBY_DEGREE = 8  # degree default of ChebyshevPreconditioner
 # so the path runs at 256^3; K5 and K4 are still timed side by side at the
 # full 512^3 on the default path's system.
 CHEBY_N = 256
+
+
+# edge of the volume the default cycle's options ("gmg-*") run on, beside
+# the default-path call there that the "cheby" path makes: with them at
+# 512^3 and each path run again as its eager twin, the whole script's warm
+# wall passed 180 s (240.0 s on an H100, PERF.md), the limit past which
+# they move to 256^3
+OPTION_N = 256
+
+# The results recorded before the solvers' chunks ran as CUDA graphs
+# (eager chunks; NVIDIA H100 80GB HBM3, 700 W; PERF.md): tau (D_xx for
+# deff, the mean D_xx for rev), the iterations (their sum over the
+# directions for deff; Arnoldi steps for cli) and the volume's edge,
+# printed beside this run's where it ran on that volume
+EAGER_RECORD = {
+       "iso": (2.6095680474199647, 50, 512),
+       "aniso": (3.445989861577157, 52, 512),
+       "sa": (2.609568050470971, 82, 512),
+       "cheby": (2.6890563461652963, 494, 256),
+       "mg": (2.6095680922036535, 890, 512),
+       "gmg-tri": (2.609568050413385, 183, 512),
+       "gmg-w": (2.6095680347203927, 49, 512),
+       "gmg-cheby": (2.6095680592259582, 50, 512),
+       "cli": (2.6095680398990324, 62, 512),
+       "deff": (0.4056992575210027, 48, 512),
+       "rev": (0.4072245571540461, None, 512)}
+
+# main[direct]: ``tortuosity_direct(make_blobs(48, 0.6, 0), 1, "X",
+# eps=1e-6)``, held against the JAX package's value for the same call
+# (``python3 -m scripts.direct_reference``: openimpala_tpu.props.
+# tortuosity_direct, float64, on an x86 CPU, JAX 0.9.0) to 1e-6 relative,
+# with the steps equal or one check (plot_interval + 1 = 101) apart
+DIRECT_N = 48
+DIRECT_JAX = {"value": -2.7714819921465814, "iterations": 43531,
+              "residual": 9.9128850616742e-07}
+DIRECT_CHECK = 101
+# its eager twin runs this many checks of the same call, against as many
+# graphed ones: the fields, residual and fluxes must be equal bit for bit
+# (the whole eager solve takes 14-28 s, host-bound at about 25 launches
+# per step)
+DIRECT_TWIN_CHECKS = 10
+
+# the graph check: each of these paths on a 128^3 volume, graphed against
+# its eager twin (result, iterations and every launch counter equal)
+GRAPH_N = 128
+GRAPH_REV_SAMPLES = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -648,7 +719,9 @@ def phase_kernels_k1_seams(chk, gen, dev, rng):
         f"against the general route, largest abs difference {worst:.3e}")
 
 
-def phase_card():
+def phase_card(warm):
+    """``warm``: the warm-up thread that builds every kernel while the
+    volume is made (``solve/warmup.py``), joined here."""
     from openimpala_tpu_torch.io import native
     from openimpala_tpu_torch.ops import stencil_cuda as sc
 
@@ -656,10 +729,19 @@ def phase_card():
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}  "
         f"count {torch.cuda.device_count()}")
+    try:
+        warm.join()
+    except RuntimeError as e:
+        raise SmokeFailure(f"card: the kernels' build failed: {e}") from e
+    t = warm.timing
+    log(f"warm-up thread: kernels {t['kernels']} built {t['built']} "
+        f"build_s={t['build_s']:.3f} load_s={t['load_s']:.3f} "
+        f"launch_s={t['launch_s']:.3f}; join() waited {t['join_s']:.3f} s")
     t0 = time.perf_counter()
     built = sc.build()
     log(f"build: {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
-        "(one nvcc per source, in parallel, or the cached library)")
+        "(built by the warm-up thread: one nvcc per source, in parallel, "
+        "or the cached library)")
     for name, (path, out) in built.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -913,6 +995,60 @@ def _log_counts(label, counts, at, plain, routes=None):
     log(f"main[{label}] plain_on_cuda " + json.dumps(plain, sort_keys=True))
 
 
+def _all_counts():
+    """Every launch counter (``stencil_cuda.COUNTERS``) as plain dicts."""
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+
+    return {k: dict(v) for k, v in sc.snapshot_counts().items()}
+
+
+def _graph_stats(label):
+    """The CUDA graphs' captures, replays and capture seconds since the
+    last ``graphs.reset_stats()``, logged."""
+    from openimpala_tpu_torch.utils import graphs
+
+    st = dict(graphs.stats)
+    log(f"main[{label}] graph: captures={st['captures']}, "
+        f"replays={st['replays']}, capture_s={st['capture_s']:.3f}")
+    return st
+
+
+def _reset():
+    """Zero the launch counters and the graph statistics."""
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+    from openimpala_tpu_torch.utils import graphs
+
+    sc.reset_counts()
+    graphs.reset_stats()
+
+
+def _eager_twin(call):
+    """``call()`` again with every solver chunk eager on the card
+    (``graphs._eager_twin``), the counters zeroed just before: (its
+    result, every counter, wall seconds)."""
+    from openimpala_tpu_torch.utils import graphs
+
+    torch.cuda.empty_cache()
+    _reset()
+    with graphs._eager_twin():
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, _all_counts(), wall
+
+
+def _require_twin(label, got, want, counts, twin_counts):
+    """A graphed run and its eager twin: the same result and iterations
+    (``got``, ``want``: comparable keys) and every counter equal."""
+    require(got == want, f"main[{label}]: graphed {got!r} against its eager "
+                         f"twin {want!r}")
+    diff = {k: (counts[k], twin_counts[k]) for k in counts
+            if counts[k] != twin_counts[k]}
+    require(not diff, f"main[{label}]: launch counters differ between the "
+                      f"graphed run and its eager twin: {diff}")
+
+
 def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None):
     """One ``tortuosity`` call (``opts``: its ``precond_opts``), counted
     on its own.  Where "auto" sends the percolation to the card, the device
@@ -924,7 +1060,7 @@ def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None):
 
     timings = {}
     torch.cuda.reset_peak_memory_stats()
-    sc.reset_counts()
+    _reset()
     with _record_fills() as fills:
         t0 = time.perf_counter()
         res = tortuosity(vol, 1, "X", eps=1e-9, dx=dx, precond=precond,
@@ -932,6 +1068,8 @@ def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None):
                          return_fields=True)
         wall = time.perf_counter() - t0
     counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
+    full = _all_counts()
+    gstats = _graph_stats(label)
     rule = auto_method(vol.shape, "cuda")
     log(f"main[{label}] percolation: method={res.percolation_method} "
         f"(auto rule {rule}), device fills {json.dumps(fills)}")
@@ -963,28 +1101,51 @@ def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None):
     require(dots >= res.iterations,
             f"main[{label}]: K1 matvec+dot launched {dots} times for "
             f"{res.iterations} PCG iterations")
+    require(gstats["captures"] >= 1 and gstats["replays"] >= 1,
+            f"main[{label}]: the PCG chunks were not replayed: {gstats}")
+    twin, twin_counts, twin_wall = _eager_twin(lambda: tortuosity(
+        vol, 1, "X", eps=1e-9, dx=dx, precond=precond, precond_opts=opts,
+        device="cuda"))
+    log(f"main[{label}] eager twin: tau={twin.value!r} "
+        f"iterations={twin.iterations} rel_res={twin.rel_res!r} "
+        f"wall_s={twin_wall:.3f} (graphed {wall:.3f})")
+    _require_twin(label, (res.value, res.iterations, res.rel_res),
+                  (twin.value, twin.iterations, twin.rel_res), full,
+                  twin_counts)
     return {"iterations": res.iterations, "counts": counts, "at": at,
             "plain": plain, "tau": res.value, "mask": res.active,
-            "wall_s": wall, "routes": routes, "fine": (n, n, n)}
+            "wall_s": wall, "routes": routes, "fine": (n, n, n),
+            "twin_wall_s": twin_wall, "graph": gstats}
+
+
+_DEFAULT_AT = {}  # edge -> (volume, the default path's tau there)
+
+
+def _default_at(label, nc, dx):
+    """The blobs volume of edge ``nc`` and the default path's tau on it,
+    from one call made for the first path that runs at that edge."""
+    from openimpala_tpu_torch import tortuosity
+
+    if nc not in _DEFAULT_AT:
+        vol = make_blobs(nc, 0.4, SEED)
+        ref = tortuosity(vol, 1, "X", eps=1e-9, dx=dx, device="cuda")
+        require(ref.converged, f"main[{label}]: the default path at {nc}^3 "
+                               "did not converge")
+        log(f"main[{label}] default path at {nc}^3: tau={ref.value!r} "
+            f"iterations={ref.iterations}")
+        _DEFAULT_AT[nc] = (vol, ref.value)
+    return _DEFAULT_AT[nc]
 
 
 def _drive_cheby(label, vol, n, dx, precond, runs):
     """``tortuosity(precond="cheby")`` on a CHEBY_N^3 volume; its tau is held
     against the default path's on the same volume (``main[iso]``'s, or a
-    default-path call of its own at CHEBY_N where that differs from n)."""
-    from openimpala_tpu_torch import tortuosity
-
+    default-path call at CHEBY_N where that differs from n)."""
     nc = min(n, CHEBY_N)
     if nc == n:
         ref_tau = runs["iso"]["tau"]
     else:
-        vol = make_blobs(nc, 0.4, SEED)
-        ref = tortuosity(vol, 1, "X", eps=1e-9, dx=dx, device="cuda")
-        require(ref.converged, f"main[{label}]: the default path at {nc}^3 "
-                               "did not converge")
-        ref_tau = ref.value
-        log(f"main[{label}] default path at {nc}^3: tau={ref_tau!r} "
-            f"iterations={ref.iterations}")
+        vol, ref_tau = _default_at(label, nc, dx)
     run = _drive_tau(label, vol, nc, dx, precond)
     rel = abs(run["tau"] - ref_tau) / abs(ref_tau)
     log(f"main[{label}] tau against the default path: rel {rel:.3e}")
@@ -1033,9 +1194,21 @@ def _drive_mg(label, vol, n, dx, precond, host_mask, opts):
 
 
 def _drive_option(label, vol, n, dx, precond, host_mask, opts):
-    """The default cycle with one option.  The Chebyshev smoother applies
-    the operators: no K1 sweep at the fine extent and no K2 sweep."""
-    run = _drive_tau(label, vol, n, dx, precond, host_mask, opts)
+    """The default cycle with one option, on an OPTION_N^3 volume where n
+    is larger, its tau held against the default path's there.  The
+    Chebyshev smoother applies the operators: no K1 sweep at the fine
+    extent and no K2 sweep."""
+    nc = min(n, OPTION_N)
+    if nc == n:
+        run = _drive_tau(label, vol, n, dx, precond, host_mask, opts)
+    else:
+        vol, ref_tau = _default_at(label, nc, dx)
+        run = _drive_tau(label, vol, nc, dx, precond, None, opts)
+        rel = abs(run["tau"] - ref_tau) / abs(ref_tau)
+        log(f"main[{label}] tau against the default path at {nc}^3: rel "
+            f"{rel:.3e}")
+        require(rel <= 1e-6, f"main[{label}]: tau differs from the default "
+                             f"path by {rel:.3e}")
     if opts.get("smoother") == "cheby":
         sweeps = {k: v for k, v in run["routes"].items()
                   if k[0].startswith("k1_sweep") and k[2] == run["fine"]}
@@ -1093,12 +1266,16 @@ def _drive_cli(label, vol, n):
     from openimpala_tpu_torch.ops import stencil_cuda as sc
     from openimpala_tpu_torch.props.volume_fraction import volume_fraction
 
-    results = []
-    tau_fn = diffusion.tortuosity
+    results, handles = [], []
+    tau_fn, prime_fn = diffusion.tortuosity, diffusion.prime_solver
 
     def recording(*a, **kw):
         results.append(tau_fn(*a, **kw))
         return results[-1]
+
+    def recording_prime(*a, **kw):  # the early warm-up's handle
+        handles.append(prime_fn(*a, **kw))
+        return handles[-1]
 
     with tempfile.TemporaryDirectory() as tmp:
         np.ascontiguousarray(vol.T, dtype=np.uint8).tofile(
@@ -1114,8 +1291,9 @@ def _drive_cli(label, vol, n):
                     "verbose = 1\n")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        sc.reset_counts()
+        _reset()
         diffusion.tortuosity = recording
+        diffusion.prime_solver = recording_prime
         try:
             with _record_fgmres() as (calls, peaks):
                 t0 = time.perf_counter()
@@ -1124,15 +1302,26 @@ def _drive_cli(label, vol, n):
                 wall = time.perf_counter() - t0
         finally:
             diffusion.tortuosity = tau_fn
+            diffusion.prime_solver = prime_fn
         counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
         routes = _k1_routes()
         peak = max(peaks + [torch.cuda.max_memory_allocated()])
         with open(os.path.join(tmp, "results", "results.txt")) as f:
             lines = f.read().splitlines()
+        # the kernels were built and loaded at the script's start (phase
+        # card, through the same warm-up): no thread starts
+        require(len(handles) == 1 and handles[0] is None,
+                f"main[{label}]: the CLI's early warm-up started a thread "
+                f"for kernels loaded already: {handles}")
+        log(f"main[{label}] early warm-up (at reader-metadata time): none "
+            "started, the solve's kernels are loaded in this process")
     require(rc == 0 and len(results) == 1 and calls,
             f"main[{label}]: the CLI returned {rc} after {len(results)} "
             f"tortuosity calls and {len(calls)} FGMRES solves")
     res = results[0]
+    gstats = _graph_stats(label)
+    require(gstats["captures"] == 0,
+            f"main[{label}]: FGMRES captured a graph: {gstats}")
     vals = dict(line.split(": ", 1) for line in lines
                 if ": " in line and not line.startswith("#"))
     vf = volume_fraction(vol, 1, device="cuda")
@@ -1190,12 +1379,14 @@ def _drive_deff(label, vol, n, dx, precond):
     timings = {}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    sc.reset_counts()
+    _reset()
     t0 = time.perf_counter()
     res = effective_diffusivity(vol, 1, eps=1e-9, dx=dx, precond=precond,
                                 device="cuda", timings=timings)
     wall = time.perf_counter() - t0
     counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
+    full = _all_counts()
+    gstats = _graph_stats(label)
     peak = torch.cuda.max_memory_allocated()
     routes = _k1_routes()
     admits = use_lanes(vol.size, 3, "cg", device="cuda")
@@ -1243,8 +1434,22 @@ def _drive_deff(label, vol, n, dx, precond):
     dots = counts.get("k1_matvec_dot_f32", 0)
     require(dots >= its, f"main[{label}]: K1 matvec+dot launched {dots} "
                          f"times for {its} PCG iterations")
+    require(gstats["captures"] >= 1 and gstats["replays"] >= 1,
+            f"main[{label}]: the PCG chunks were not replayed: {gstats}")
+    eager, eager_counts, eager_wall = _eager_twin(
+        lambda: effective_diffusivity(vol, 1, eps=1e-9, dx=dx,
+                                      precond=precond, device="cuda",
+                                      lanes=res.lanes))
+    log(f"main[{label}] eager twin: lanes={eager.lanes} "
+        f"D_xx={eager.deff[0, 0]!r} iterations={eager.iterations} "
+        f"wall_s={eager_wall:.3f} (graphed {wall:.3f})")
+    _require_twin(label, (res.deff.tolist(), res.iterations, res.rel_res),
+                  (eager.deff.tolist(), eager.iterations, eager.rel_res),
+                  full, eager_counts)
     return {"iterations": its, "counts": counts, "at": {}, "plain": plain,
-            "wall_s": wall, "routes": routes, "fine": (n, n, n)}
+            "wall_s": wall, "routes": routes, "fine": (n, n, n),
+            "value": float(res.deff[0, 0]), "twin_wall_s": eager_wall,
+            "graph": gstats}
 
 
 def _drive_rev(label, vol, n, dx):
@@ -1273,7 +1478,7 @@ def _drive_rev(label, vol, n, dx):
 
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
-    sc.reset_counts()
+    _reset()
     pb.batched_cell_problems = recording
     t0 = time.perf_counter()
     try:
@@ -1284,6 +1489,8 @@ def _drive_rev(label, vol, n, dx):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
+    full = _all_counts()
+    gstats = _graph_stats(label)
     peak = torch.cuda.max_memory_allocated() - base_mem
     crop_bytes = size ** 3 * 4
     n_conv = sum(s.converged for s in samples)
@@ -1330,9 +1537,22 @@ def _drive_rev(label, vol, n, dx):
         f"max abs diff {err:.3e} (sequential iterations {seq.iterations})")
     require(seq.converged and err <= 1e-6,
             f"main[{label}]: batched and sequential D_eff differ by {err:.3e}")
+    require(gstats["captures"] == 3 and gstats["replays"] >= 3,
+            f"main[{label}]: not one graph per direction, replayed: "
+            f"{gstats}")
+    mean = float(np.mean([s.deff[0, 0] for s in samples]))
+    twin, twin_counts, twin_wall = _eager_twin(lambda: rev_study(
+        vol, 1, sizes=(size,), num_samples=REV_SAMPLES, eps=1e-9, dx=dx,
+        device="cuda"))
+    twin_mean = float(np.mean([s.deff[0, 0] for s in twin]))
+    log(f"main[{label}] eager twin: D_xx mean={twin_mean!r} "
+        f"wall_s={twin_wall:.3f} (graphed {wall:.3f})")
+    _require_twin(label, [s.deff.tolist() for s in samples],
+                  [s.deff.tolist() for s in twin], full, twin_counts)
     return {"iterations": sum(d["executed_iterations"] for d in per_dir),
             "counts": counts, "at": {}, "plain": plain, "wall_s": wall,
-            "samples": samples, "size": size}
+            "samples": samples, "size": size, "value": mean,
+            "twin_wall_s": twin_wall, "graph": gstats}
 
 
 def _require_stream_route(label, run):
@@ -1348,6 +1568,80 @@ def _require_stream_route(label, run):
     stray = {k: v for k, v in at_fine.items() if k[1] != "stream"}
     require(not stray, f"main[{label}]: K1 launches at the fine extent off "
                        f"the stream route: {stray}")
+
+
+def _drive_direct(label):
+    """``tortuosity_direct`` on a DIRECT_N^3 blobs volume (porosity 0.6):
+    each check of 100 steps and the measuring one replay one CUDA graph.
+    Held against the JAX package's value (DIRECT_JAX); then the first
+    DIRECT_TWIN_CHECKS checks of the same call graphed against its eager
+    twin, bit for bit."""
+    from openimpala_tpu_torch import tortuosity_direct
+
+    vol = make_blobs(DIRECT_N, 0.6, SEED)
+    call = lambda: tortuosity_direct(vol, 1, "X", eps=1e-6)  # noqa: E731
+    _reset()
+    t0 = time.perf_counter()
+    res = call()
+    wall = time.perf_counter() - t0
+    full = _all_counts()
+    gstats = _graph_stats(label)
+    want = DIRECT_JAX
+    rel = abs(res.value - want["value"]) / abs(want["value"])
+    log(f"main[{label}] {DIRECT_N}^3 blobs 0.6 X eps=1e-6: "
+        f"tau={res.value!r} steps={res.iterations} "
+        f"residual={res.residual!r} flux_in={res.flux_in!r} "
+        f"flux_out={res.flux_out!r} converged={res.converged} "
+        f"wall_s={wall:.3f} steps_per_s={res.iterations / wall:.0f}; JAX "
+        f"package tau={want['value']!r} steps={want['iterations']}: rel "
+        f"{rel:.3e}")
+    require(res.converged and rel <= 1e-6,
+            f"main[{label}]: tau {res.value!r} against the JAX package's "
+            f"{want['value']!r} (rel {rel:.3e})")
+    require(abs(res.iterations - want["iterations"]) <= DIRECT_CHECK,
+            f"main[{label}]: {res.iterations} steps against the JAX "
+            f"package's {want['iterations']}")
+    require(gstats["captures"] == 1
+            and gstats["replays"] == res.iterations // DIRECT_CHECK - 1,
+            f"main[{label}]: not one replay per check after the first: "
+            f"{gstats}")
+    steps = DIRECT_TWIN_CHECKS * DIRECT_CHECK
+    cut = lambda: tortuosity_direct(  # noqa: E731
+        vol, 1, "X", eps=1e-6, n_steps=steps, return_fields=True)
+    _reset()
+    t0 = time.perf_counter()
+    part = cut()
+    part_wall = time.perf_counter() - t0
+    part_counts = _all_counts()
+    twin, twin_counts, twin_wall = _eager_twin(cut)
+    log(f"main[{label}] the first {steps} steps: graphed residual="
+        f"{part.residual!r} wall_s={part_wall:.3f}; eager twin residual="
+        f"{twin.residual!r} wall_s={twin_wall:.3f} "
+        f"steps_per_s={twin.iterations / twin_wall:.0f}; fields equal: "
+        f"{torch.equal(part.phi, twin.phi)}")
+    _require_twin(label, (part.iterations, part.residual, part.flux_in,
+                          part.flux_out, part.converged),
+                  (twin.iterations, twin.residual, twin.flux_in,
+                   twin.flux_out, twin.converged), part_counts, twin_counts)
+    require(torch.equal(part.phi, twin.phi),
+            f"main[{label}]: the fields differ from the eager twin's")
+    return {"iterations": res.iterations, "value": res.value,
+            "wall_s": wall, "twin_wall_s": twin_wall,
+            "twin_steps": steps, "graph": gstats}
+
+
+def _log_record(label, run, edge):
+    """This run's result and iterations beside EAGER_RECORD's, where the
+    run's volume (of edge ``edge``) is the one the record was taken on."""
+    if label not in EAGER_RECORD or edge != EAGER_RECORD[label][2]:
+        return
+    value = run.get("tau", run.get("value"))
+    want, its, _ = EAGER_RECORD[label]
+    log(f"main[{label}] against the eager record: value {value!r} / "
+        f"{want!r} "
+        f"(equal: {value == want}), iterations {run['iterations']} / "
+        f"{its}; wall_s graphed {run['wall_s']:.3f}, eager twin "
+        f"{run.get('twin_wall_s', float('nan')):.3f}")
 
 
 def phase_main(vol, n, host_mask):
@@ -1375,10 +1669,12 @@ def phase_main(vol, n, host_mask):
         require(not run["plain"], f"main[{label}]: plain versions ran on "
                                   f"CUDA tensors: {run['plain']}")
         _require_stream_route(label, run)
-        if label not in ("iso", "cheby"):
-            run.pop("mask", None)  # the times phase rebuilds from these two
+        edge = run.get("fine", (n,))[0]  # rev: crops of the main volume
+        _log_record(label, run, edge)
+        if label != "iso" and edge == n:
+            run.pop("mask", None)  # the times phase rebuilds from iso's
         runs[label] = run
-        if label in AGREE_WITH_ISO:
+        if label in AGREE_WITH_ISO and edge == n:
             rel = abs(run["tau"] - runs["iso"]["tau"]) / abs(
                 runs["iso"]["tau"])
             log(f"main[{label}] tau against main[iso]: rel {rel:.3e}; "
@@ -1387,7 +1683,58 @@ def phase_main(vol, n, host_mask):
                 f"against {runs['iso']['wall_s']:.3f}")
             require(rel <= 1e-6, f"main[{label}]: tau differs from "
                                  f"main[iso] by {rel:.3e}")
+    runs["direct"] = _drive_direct("direct")
     return runs
+
+
+def _graph_key(name, out):
+    """What a graphed run and its eager twin must share: the result and
+    the iterations."""
+    if name in ("iso", "sa"):
+        return (out.value, out.iterations, out.rel_res)
+    if name == "deff":
+        return (out.deff.tolist(), out.iterations, out.rel_res, out.lanes)
+    return [s.deff.tolist() for s in out]
+
+
+def phase_graph(seed):
+    """At GRAPH_N^3: ``tortuosity`` (default and ``sa``),
+    ``effective_diffusivity`` through the lanes and ``rev_study`` (64^3
+    crops), each graphed and then as its eager twin, the counters zeroed
+    before each: the results, the iterations and every launch counter must
+    be equal."""
+    from openimpala_tpu_torch import (effective_diffusivity, rev_study,
+                                      tortuosity)
+
+    vol = make_blobs(GRAPH_N, 0.4, seed)
+    cases = {
+        "iso": lambda: tortuosity(vol, 1, "X", eps=1e-9, device="cuda"),
+        "sa": lambda: tortuosity(vol, 1, "X", eps=1e-9, precond="sa",
+                                 device="cuda"),
+        "deff": lambda: effective_diffusivity(vol, 1, eps=1e-9, lanes=True,
+                                              device="cuda"),
+        "rev": lambda: rev_study(vol, 1, sizes=(min(REV_SIZE, GRAPH_N),),
+                                 num_samples=GRAPH_REV_SAMPLES, eps=1e-9,
+                                 device="cuda"),
+    }
+    for name, call in cases.items():
+        _reset()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _all_counts()
+        gstats = _graph_stats(f"graph {GRAPH_N}^3 {name}")
+        twin, twin_counts, twin_wall = _eager_twin(call)
+        got, want = _graph_key(name, out), _graph_key(name, twin)
+        equal = counts == twin_counts
+        log(f"graph {GRAPH_N}^3 {name}: graphed {str(got)[:160]} wall_s="
+            f"{wall:.3f}; eager twin wall_s={twin_wall:.3f}; results equal: "
+            f"{got == want}; counters equal: {equal} ("
+            f"{sum(counts['launches'].values())} launches)")
+        require(gstats["replays"] >= 1,
+                f"graph[{name}]: no chunk was replayed: {gstats}")
+        _require_twin(f"graph {name}", got, want, counts, twin_counts)
 
 
 def _both(call):
@@ -1866,8 +2213,8 @@ def phase_times(chk, vol, seed, runs):
             active = torch.from_numpy(vol == 1).to(dev)
             system = make_cell_problem_system(active, 0, dx=dx,
                                               dtype=torch.float32)
-        else:  # the percolation mask of the run (the cheby path's own)
-            active = runs["cheby" if label == "cheby" else "iso"]["mask"]
+        else:  # the run's percolation mask, or iso's on the same volume
+            active = runs[label].get("mask", runs["iso"]["mask"])
             system = make_tortuosity_system(active, 0, -1.0, 1.0, dx=dx,
                                             dtype=torch.float32)
         del active
@@ -1964,6 +2311,11 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    # every kernel is built and loaded in a thread while the volume is made
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+    from openimpala_tpu_torch.solve import warmup
+
+    warm = warmup.SolverWarmup(tuple(sc.SOURCES), torch.device("cuda"))
     chk = Checker()
     t0 = time.perf_counter()
     vol = make_blobs(args.n, 0.4, SEED)
@@ -1971,7 +2323,7 @@ def main(argv=None):
         f"{time.perf_counter() - t0:.1f} s, pore fraction {vol.mean():.4f}")
     t0 = _phase_done("volume", t_start)
     try:
-        phase_card()
+        phase_card(warm)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1991,6 +2343,8 @@ def main(argv=None):
             runs = phase_main(vol, args.n, perc["mask_x"])
             del perc
             t0 = _phase_done("main", t0)
+            phase_graph(SEED)
+            t0 = _phase_done("graph", t0)
             phase_parity(SEED)
             t0 = _phase_done("parity", t0)
             torch.cuda.empty_cache()

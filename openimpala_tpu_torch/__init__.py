@@ -18,4 +18,8 @@ from .props.effective_diffusivity import (  # noqa: F401
 )
 from .props.rev import rev_study  # noqa: F401
 from .props.tortuosity import TortuosityResult, tortuosity  # noqa: F401
+from .props.tortuosity_direct import (  # noqa: F401
+    TortuosityDirectResult,
+    tortuosity_direct,
+)
 from .props.volume_fraction import volume_fraction  # noqa: F401

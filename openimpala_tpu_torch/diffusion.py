@@ -16,6 +16,13 @@ The console lines and ``results.txt`` are the JAX CLI's.  ``device``
 (inputs key or ``device=cpu`` override; default ``cuda``) says where the
 solvers run: the thresholded phase moves there once and every calculation
 takes it from there.  Without a card, ``device = cuda`` raises.
+
+On the card the kernels' build and load start at reader-metadata time, in
+a thread that overlaps the voxel read, the threshold and the percolation
+fill (``props.tortuosity.prime_solver``, ``props.effective_diffusivity.
+prime_cell_solver``; ``OPENIMPALA_NO_EARLY_WARM=1`` turns this off).
+``OPENIMPALA_PROFILE=1`` prints the per-phase wall-clock table at the end
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -29,10 +36,12 @@ import torch
 
 from .config import DiffusionConfig, ParmParse, resolve_solver, solver_notice
 from .io.writers import read_any, write_results_txt, write_volume_hdf5_xdmf
-from .props.effective_diffusivity import effective_diffusivity
+from .props.effective_diffusivity import (effective_diffusivity,
+                                          prime_cell_solver)
 from .props.rev import rev_study
-from .props.tortuosity import tortuosity
+from .props.tortuosity import prime_solver, tortuosity
 from .props.volume_fraction import volume_fraction_counts
+from .utils import profiling
 from .utils.common import DIRECTIONS, resolve_device
 
 
@@ -45,10 +54,11 @@ def _reader(cfg: DiffusionConfig):
                     raw_dtype=cfg.raw_datatype)
 
 
-def load_phase(cfg: DiffusionConfig) -> np.ndarray:
+def load_phase(cfg: DiffusionConfig, reader=None) -> np.ndarray:
     # like the reference executable: threshold maps > thr -> 1, else 0; phase_id then
     # selects which binary value to analyse (Diffusion.cpp:255-261)
-    return _reader(cfg).threshold(cfg.threshold_val, 1, 0)
+    reader = _reader(cfg) if reader is None else reader
+    return reader.threshold(cfg.threshold_val, 1, 0)
 
 
 def parse_directions(s: str):
@@ -69,6 +79,8 @@ def main(argv=None) -> int:
               "[key=value ...]", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    if os.environ.get("OPENIMPALA_PROFILE", "0") == "1":
+        profiling.enable(True)
 
     pp = ParmParse.from_file(argv[0], overrides=argv[1:])
     cfg = DiffusionConfig.from_parmparse(pp)
@@ -88,7 +100,29 @@ def main(argv=None) -> int:
     if cfg.verbose >= 1:
         print(f"Reading full domain data from: "
               f"{os.path.join(cfg.data_path, cfg.filename)}")
-    phase = load_phase(cfg)  # (X, Y, Z) int8 on the host
+    # the readers are metadata-first: start the kernels' build now, so it
+    # overlaps the voxel read and threshold (None off CUDA)
+    warm0 = meta_reader = None
+    if (not cfg.rev_do_study
+            and os.environ.get("OPENIMPALA_NO_EARLY_WARM") != "1"):
+        meta_reader = _reader(cfg)
+        dims = (meta_reader.width, meta_reader.height, meta_reader.depth)
+        if min(dims) > 0 and cfg.calculation_method == "flow_through":
+            dirs = parse_directions(cfg.direction)
+            if dirs:
+                warm0 = prime_solver(
+                    dims, dirs[0], vlo=cfg.tortuosity_vlo,
+                    vhi=cfg.tortuosity_vhi, method=method,
+                    precond=cfg.precond, inner_dtype=inner_dtype,
+                    eps=cfg.eps, dx=cfg.voxel_size, extra_dirs=dirs[1:],
+                    device=dev)
+        elif min(dims) > 0 and cfg.calculation_method == "homogenization":
+            warm0 = prime_cell_solver(
+                dims, method=method, precond=cfg.precond,
+                inner_dtype=inner_dtype, eps=cfg.eps, dx=cfg.voxel_size,
+                device=dev)
+    with profiling.phase_timer(None, "cli/read_threshold"):
+        phase = load_phase(cfg, meta_reader)  # (X, Y, Z) int8 on the host
     shape = phase.shape
     if cfg.verbose >= 1:
         print(f"  Domain: {shape[0]} x {shape[1]} x {shape[2]}")
@@ -122,7 +156,7 @@ def main(argv=None) -> int:
             phase, cfg.phase_id, eps=cfg.eps, maxiter=cfg.krylov_maxiter,
             method=method, precond=cfg.precond, inner_dtype=inner_dtype,
             verbose=cfg.verbose, return_fields=cfg.write_plotfile,
-            dx=cfg.voxel_size, device=dev,
+            dx=cfg.voxel_size, device=dev, warm=warm0,
         )
         if res.converged:
             print("Full Domain Effective Diffusivity Tensor D_eff / D_material:")
@@ -163,7 +197,7 @@ def main(argv=None) -> int:
                 dx=cfg.voxel_size,
                 inner_dtype=inner_dtype, verbose=tort_verbose,
                 return_fields=cfg.write_plotfile or cfg.debug_write_active_mask,
-                device=dev,
+                device=dev, warm=warm0,  # one handle for every direction
             )
             results[f"Tortuosity_{name}"] = r.value
             print(f"  >>> Calculated Tortuosity ({name}): {r.value:.8f} <<<")
@@ -189,6 +223,10 @@ def main(argv=None) -> int:
         print(f"Unknown calculation_method: {cfg.calculation_method}",
               file=sys.stderr)
         return 2
+
+    if os.environ.get("OPENIMPALA_PROFILE", "0") == "1":
+        print("\nPer-phase wall-clock (OPENIMPALA_PROFILE=1):")
+        profiling.report(file=sys.stdout)
 
     print(f"\nTotal run time (seconds) = {time.perf_counter() - t_start:.3f}")
     return 0

@@ -13,7 +13,9 @@ per source, on first use); every launch adds one to
 ``stencil_cuda.launches["k3_<mode>_<f32|f64>"]``, an apply of a leading
 part of the taps to ``"k3_apply_prefix_<f32|f64>"``, and one to
 ``stencil_cuda.launches_at[(name, (X, Y, Z))]``, which splits the same
-launches by the level's extent.
+launches by the level's extent (``stencil_cuda._count``: nothing on a
+thread inside ``stencil_cuda.uncounted()``; a CUDA graph's replays add the
+counts its capture made, ``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -92,6 +94,5 @@ def k3_offset(mode: str, x, r, packed, offsets, n_taps=None,
     sc._raise_on(err, lib, "k3", f"K3 {mode}")
     name = "apply_prefix" if mode == "apply" and n < T else mode
     name = f"k3_{name}_{sc._DTYPES[x.dtype]}"
-    sc.launches[name] += 1
-    sc.launches_at[name, (X, Y, Z)] += 1
+    sc._count(name, (X, Y, Z))
     return out

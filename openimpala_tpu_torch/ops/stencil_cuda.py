@@ -75,11 +75,20 @@ K3 runs on every level of a hierarchy, so its launcher also adds one to
 K1's launcher adds one to ``launches_route[(name, route)]`` and to
 ``launches_route_at[(name, route, (X, Y, Z))]``: the same launches, split
 by the route that served them.
+
+A CUDA graph replays its kernels without running any of this Python, so
+``utils/graphs.py`` takes the counts a capture made (``snapshot_counts``,
+``counts_since``), puts the counters back as they were before it
+(``restore_counts``: a capture runs nothing), and adds the captured counts
+once per replay (``add_counts``).  Launches made inside ``uncounted()`` on
+the calling thread (the solver warm-up's, ``solve/warmup.py``) add to no
+counter.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -112,17 +121,66 @@ launches_route: collections.Counter = collections.Counter()  # (name, route)
 # (name, route, shape)
 launches_route_at: collections.Counter = collections.Counter()
 plain_on_cuda: collections.Counter = collections.Counter()
+COUNTERS = {"launches": launches, "launches_at": launches_at,
+            "launches_route": launches_route,
+            "launches_route_at": launches_route_at,
+            "plain_on_cuda": plain_on_cuda}
 
 _lock = threading.Lock()
 _libs: dict = {}
+_local = threading.local()  # .uncounted: this thread's launches count not
 
 
 def reset_counts():
-    launches.clear()
-    launches_at.clear()
-    launches_route.clear()
-    launches_route_at.clear()
-    plain_on_cuda.clear()
+    for c in COUNTERS.values():
+        c.clear()
+
+
+def snapshot_counts() -> dict:
+    """A copy of every counter."""
+    return {k: collections.Counter(c) for k, c in COUNTERS.items()}
+
+
+def counts_since(before: dict) -> dict:
+    """What each counter gained since ``before`` (``snapshot_counts``)."""
+    return {k: c - before[k] for k, c in COUNTERS.items()}
+
+
+def restore_counts(before: dict):
+    """Put every counter back to ``before``."""
+    for k, c in COUNTERS.items():
+        c.clear()
+        c.update(before[k])
+
+
+def add_counts(deltas: dict):
+    """Add ``deltas`` (``counts_since``) to the counters."""
+    for k, c in COUNTERS.items():
+        c.update(deltas[k])
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made in the block by this thread add to no counter."""
+    prev = getattr(_local, "uncounted", False)
+    _local.uncounted = True
+    try:
+        yield
+    finally:
+        _local.uncounted = prev
+
+
+def _count(name: str, shape=None, route=None):
+    """One launch of ``name``; ``route``: K1's; ``shape`` with no route:
+    the extent K3 ran at."""
+    if getattr(_local, "uncounted", False):
+        return
+    launches[name] += 1
+    if route is not None:
+        launches_route[name, route] += 1
+        launches_route_at[name, route, shape] += 1
+    elif shape is not None:
+        launches_at[name, shape] += 1
 
 
 def note_plain(name: str, x: torch.Tensor):
@@ -490,9 +548,7 @@ def k1_stencil(mode: str, x, r, code, w, periodic, omega: float = 0.9,
                  code.data_ptr(), out.data_ptr(), pp, dp, *geom, stream)
     _raise_on(err, lib, "k1", f"K1 {mode} ({plan.route} route)")
     name = f"k1_{mode}{'_dot' if with_dot else ''}_{_DTYPES[x.dtype]}"
-    launches[name] += 1
-    launches_route[name, plan.route] += 1
-    launches_route_at[name, plan.route, (X, Y, Z)] += 1
+    _count(name, (X, Y, Z), plan.route)
     return (out, dot) if with_dot else out
 
 
@@ -517,7 +573,7 @@ def k2_conductance(mode: str, x, r, cx, cy, cz, diag, omega: float = 0.9):
              out.data_ptr(), X, Y, Z, float(omega),
              torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, lib, "k2", f"K2 {mode}")
-    launches[f"k2_{mode}_{_DTYPES[x.dtype]}"] += 1
+    _count(f"k2_{mode}_{_DTYPES[x.dtype]}")
     return out
 
 
@@ -574,7 +630,7 @@ def k4_matvec(x, diag, free, w, periodic, with_dot: bool = False):
         int(bool(periodic[2])), float(w[0]), float(w[1]), float(w[2]),
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, lib, "k4", "K4 matvec")
-    launches[f"k4_matvec{'_dot' if with_dot else ''}_{_DTYPES[x.dtype]}"] += 1
+    _count(f"k4_matvec{'_dot' if with_dot else ''}_{_DTYPES[x.dtype]}")
     return (out, dot) if with_dot else out
 
 
@@ -596,5 +652,5 @@ def k5_matvec_stream(x, diag, free, w, periodic):
         float(w[1]), float(w[2]),
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, lib, "k5", "K5 matvec")
-    launches[f"k5_matvec_{_DTYPES[x.dtype]}"] += 1
+    _count(f"k5_matvec_{_DTYPES[x.dtype]}")
     return out

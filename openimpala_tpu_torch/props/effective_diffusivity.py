@@ -31,11 +31,27 @@ import torch
 from ..ops.floodfill import _phase_ok
 from ..ops.flux import deff_integrand_sum
 from ..ops.stencil import make_cell_problem_system
+from ..solve import warmup
 from ..solve.cg import ResidualHistory
 from ..solve.lanes import LaneSystem, solve_system_lanes, use_lanes
 from ..solve.refine import make_precond, solve_system
 from ..utils.common import resolve_device
 from ..utils.profiling import phase_timer
+
+
+def prime_cell_solver(shape, *, dx=(1.0, 1.0, 1.0), method: str = "cg",
+                      precond: str = "auto", precond_opts: dict = None,
+                      inner_dtype=torch.float32, dtype=torch.float64,
+                      eps: float = 1e-9, device=None):
+    """Start the background build and load of the kernels a homogenisation
+    solve of ``shape`` will launch, BEFORE the voxel data exists (the CLI
+    calls it at reader-metadata time; ``solve/warmup.py``).  Returns a
+    handle for ``effective_diffusivity(..., warm=handle)``, or None off
+    CUDA (the JAX package: None off the TPU) or once the kernels are
+    loaded.  ``device``: None means CUDA.  The kernels depend on
+    ``precond`` alone; the other arguments are the JAX package's call
+    shape."""
+    return warmup.maybe_start(precond, device=device)
 
 
 @dataclasses.dataclass
@@ -70,6 +86,7 @@ def effective_diffusivity(
     lanes: bool | str = "auto",
     device=None,
     timings: dict | None = None,
+    warm=None,
 ) -> EffectiveDiffusivityResult:
     """D_eff tensor of ``phase_id`` in the (X, Y, Z) volume ``phase`` (numpy
     array or tensor; a tensor's mask and count are made on its own device,
@@ -82,6 +99,8 @@ def effective_diffusivity(
     ``device``: None means CUDA, and raises where there is none; pass
     ``"cpu"`` to run on the CPU.  ``timings``: optional dict that receives
     the wall seconds of each step, summed over the three directions.
+    ``warm``: a handle from ``prime_cell_solver``, joined (and its failure
+    raised) before the first solver kernel.
     """
     dev = resolve_device(device)
     lanes_ok = method in ("cg", "pcg") and inner_dtype is not None
@@ -103,6 +122,9 @@ def effective_diffusivity(
         n_active = int(active_np.sum())
         active = None
     vf = n_active / n_total
+    if warm is not None:  # on every path out of this call
+        with phase_timer(timings, "warm_join"):
+            warm.join()
 
     if n_active == 0:
         # zero-active shortcut: chi = 0, converged

@@ -28,6 +28,7 @@ from ..ops.floodfill import auto_method, percolation_mask, upload_phase
 from ..ops.flux import boundary_fluxes
 from ..ops.masks import linear_ramp
 from ..ops.stencil import make_tortuosity_system
+from ..solve import warmup
 from ..solve.cg import ResidualHistory
 from ..solve.refine import solve_system
 from ..utils.common import parse_direction, resolve_device
@@ -68,6 +69,25 @@ class TortuosityResult:
     percolation_method: str = None  # the method that made the mask
 
 
+def prime_solver(shape, direction, *, vlo: float = -1.0, vhi: float = 1.0,
+                 dx=(1.0, 1.0, 1.0), method: str = "cg",
+                 precond: str = "auto", precond_opts: dict = None,
+                 inner_dtype=torch.float32, dtype=torch.float64,
+                 eps: float = 1e-9, percolation_method: str = "auto",
+                 extra_dirs=(), device=None):
+    """Start the background build and load of the kernels a flow-through
+    solve of ``shape`` along ``direction`` will launch, BEFORE the voxel
+    data exists: the CLI calls it at reader-metadata time, so the build
+    overlaps the file read, the threshold and the percolation fill
+    (``solve/warmup.py``).  Returns a handle to pass as ``tortuosity(...,
+    warm=handle)`` (the same handle to every direction of ``extra_dirs``),
+    or None where warming cannot pay: off CUDA, as the JAX package returns
+    None off the TPU, or once the kernels are loaded.  ``device``: None
+    means CUDA.  The kernels depend on ``precond`` alone; the other
+    arguments are the JAX package's call shape."""
+    return warmup.maybe_start(precond, device=device)
+
+
 def tortuosity(
     phase,
     phase_id: int,
@@ -89,6 +109,7 @@ def tortuosity(
     verbose: int = 0,
     device=None,
     timings: dict | None = None,
+    warm=None,
 ) -> TortuosityResult:
     """Flow-through tortuosity of ``phase_id`` along ``direction`` of the
     (X, Y, Z) volume ``phase`` (numpy array or tensor).
@@ -101,7 +122,10 @@ def tortuosity(
     there is none; pass ``"cpu"`` to run on the CPU.  ``timings``: optional
     dict that receives the wall seconds of each step (the device is
     synchronised at each step's end, so the times include the queued
-    device work).
+    device work).  ``warm``: a handle from ``prime_solver``; without one,
+    on CUDA the kernels' build starts here in a thread that overlaps the
+    percolation fill (``solve/warmup.py``); either way it is joined, and
+    its failure raised, before the solve's first kernel.
     """
     dev = resolve_device(device)
     direction = parse_direction(direction)
@@ -120,6 +144,10 @@ def tortuosity(
                 phase = remspot(torch.from_numpy(np.ascontiguousarray(
                     phase)), remspot_passes).numpy()
 
+    if warm is None:
+        # no early handle from prime_solver: start the build now so that
+        # it overlaps the percolation fill
+        warm = warmup.maybe_start(precond, device=dev)
     if perc == "device":  # the mask is made, and stays, on the card
         with phase_timer(timings, "phase_upload", dev):
             phase = upload_phase(phase, dev)
@@ -127,6 +155,11 @@ def tortuosity(
         active, active_vf = percolation_mask(phase, phase_id, direction,
                                              method=perc, device=dev)
     del phase
+    if warm is not None:
+        # before any solver kernel, and on every path out of this call:
+        # the thread's launches never overlap a capture
+        with phase_timer(timings, "warm_join"):
+            warm.join()
 
     nanres = TortuosityResult(
         value=math.nan, deff=math.nan, active_vf=active_vf,
@@ -138,13 +171,13 @@ def tortuosity(
         # zero percolation: NaN, matching TortuosityHypre.cpp:170-178,764-777
         return nanres
 
-    storage = dtype if inner_dtype is None else inner_dtype
     if isinstance(active, torch.Tensor):
         active_t = active
     else:  # a host or native mask
         with phase_timer(timings, "mask_upload", dev):
             active_t = torch.from_numpy(active).to(dev)
     del active
+    storage = dtype if inner_dtype is None else inner_dtype
     with phase_timer(timings, "system_setup", dev):
         system, x0_free = _build_system(active_t, direction, float(vlo),
                                         float(vhi), tuple(dx), storage)

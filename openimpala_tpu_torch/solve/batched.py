@@ -13,7 +13,9 @@ alpha, beta and residual, and lanes that have converged keep their state.
   arrays the preconditioner holds (``ops/stencil.py::apply_restricted``),
   each lane wrapping on its own.
 * **Chunks**: ``chunk`` iterations are queued back to back, then ONE host
-  read says whether every lane is done.
+  read says whether every lane is done.  On CUDA an iteration is a CUDA
+  graph (``utils/graphs.py``), captured once per direction and replayed in
+  every refinement round.
 * **Memory-sized groups**: ``batched_deff`` splits the crop stack into
   groups sized from the refinement state's bytes per crop.
 """
@@ -30,6 +32,7 @@ from ..ops.stencil import (
     decode_code,
     make_cell_problem_system,
 )
+from ..utils import graphs
 from ..utils.common import resolve_device
 from .preconditioners import ChebyshevPreconditioner, JacobiPreconditioner
 
@@ -53,54 +56,75 @@ def _make_precond(systems, r0, precond: str, degree: int):
     return JacobiPreconditioner(diag=diag, free=systems.free)
 
 
-def _batched_cg_chunk(systems, precond, state, denom, eps, chunk: int):
-    """``chunk`` lockstep PCG iterations over the batch.  Every lane is
-    computed; a lane that is done keeps its old state.  Returns the new
-    state and the packed (max iterations, all done) probe, still on the
-    device."""
+def _batched_step(systems, precond, state, denom, eps):
+    """One lockstep PCG iteration over the batch, written into the state
+    tensors in place.  Every lane is computed; a lane that is done keeps
+    its old state."""
     M = precond
-    w, periodic = systems.w, systems.periodic
-    for _ in range(chunk):
-        z, r, p, rz, it, rel, done = state
-        ap, pap = apply_restricted_with_dot(p, M.diag, M.free, w, periodic)
-        ok = pap > 0
-        alpha = torch.where(ok, rz / torch.where(ok, pap, 1.0), 0.0)
-        z2 = z + _lanes(alpha) * p
-        r2 = r - _lanes(alpha) * ap
-        rel2 = torch.sqrt(torch.sum(r2 * r2, dim=_VOL)) / denom
-        y = M(r2)
-        rz2 = torch.sum(r2 * y, dim=_VOL)
-        beta = torch.where(rz > 0, rz2 / torch.where(rz > 0, rz, 1.0), 0.0)
-        p2 = y + _lanes(beta) * p
-        done2 = done | (rel2 <= eps) | ~ok
-        keep = _lanes(done)
-        state = (torch.where(keep, z, z2), torch.where(keep, r, r2),
-                 torch.where(keep, p, p2), torch.where(done, rz, rz2),
-                 torch.where(done, it, it + 1), torch.where(done, rel, rel2),
-                 done2)
-    probe = torch.stack([state[4].max().to(torch.float64),
-                         state[6].all().to(torch.float64)])
-    return state, probe
+    z, r, p, rz, it, rel, done = state
+    ap, pap = apply_restricted_with_dot(p, M.diag, M.free, systems.w,
+                                        systems.periodic)
+    ok = pap > 0
+    alpha = torch.where(ok, rz / torch.where(ok, pap, 1.0), 0.0)
+    z2 = z + _lanes(alpha) * p
+    r2 = r - _lanes(alpha) * ap
+    rel2 = torch.sqrt(torch.sum(r2 * r2, dim=_VOL)) / denom
+    y = M(r2)
+    rz2 = torch.sum(r2 * y, dim=_VOL)
+    beta = torch.where(rz > 0, rz2 / torch.where(rz > 0, rz, 1.0), 0.0)
+    p2 = y + _lanes(beta) * p
+    done2 = done | (rel2 <= eps) | ~ok
+    keep = _lanes(done)
+    torch.where(keep, z, z2, out=z)
+    torch.where(keep, r, r2, out=r)
+    torch.where(keep, p, p2, out=p)
+    rz.copy_(torch.where(done, rz, rz2))
+    it.copy_(torch.where(done, it, it + 1))
+    rel.copy_(torch.where(done, rel, rel2))
+    done.copy_(done2)
+
+
+def _batched_probe(it, done):
+    """The packed (max iterations, all done) probe."""
+    return (torch.stack([it.max().to(torch.float64),
+                         done.all().to(torch.float64)]),)
 
 
 def _batched_cg(systems, r0, denom, eps, maxiter: int, precond,
-                chunk: int = 25):
+                chunk: int = 25, _graph=None):
     """Host-chunked batched PCG: z with z0 = 0 per lane.  Returns
-    ``(z, iterations (B,), rel_res (B,))``."""
+    ``(z, iterations (B,), rel_res (B,))``.  ``_graph``: as in
+    ``solve/cg.py::_cg_chunked_loop``."""
     B = r0.shape[0]
     y = precond(r0)
     rz = torch.sum(r0 * y, dim=_VOL)
     rel0 = torch.sqrt(torch.sum(r0 * r0, dim=_VOL)) / denom
-    state = (torch.zeros_like(r0), r0, y, rz,
+    state = (torch.zeros_like(r0), r0.clone(), y, rz,
              torch.zeros((B,), dtype=torch.int32, device=r0.device),
              rel0, rel0 <= eps)
-    while True:
-        state, probe = _batched_cg_chunk(systems, precond, state, denom,
-                                         float(eps), chunk)
-        it_max, all_done = probe.tolist()  # ONE read per chunk
-        if all_done > 0 or int(it_max) >= maxiter:
-            break
-    z, r, p, rz, it, rel, done = state
+    with graphs.solve_graph(r0.device, _graph) as holder:
+        if holder:
+            holder.load(("batched", id(systems), id(precond)),
+                        lambda *a: _batched_step(systems, precond, a[:7],
+                                                 a[7], a[8]),
+                        lambda *a: _batched_probe(a[4], a[6]),
+                        state, (denom, torch.full((), float(eps),
+                                                  dtype=r0.dtype,
+                                                  device=r0.device)))
+        while True:
+            if holder:
+                (probe,) = holder.run(chunk)
+            else:
+                for _ in range(chunk):
+                    _batched_step(systems, precond, state, denom, float(eps))
+                (probe,) = _batched_probe(state[4], state[6])
+            it_max, all_done = probe.tolist()  # ONE read per chunk
+            if all_done > 0 or int(it_max) >= maxiter:
+                break
+        z, r, p, rz, it, rel, done = holder.state if holder else state
+        if holder and holder is _graph:
+            # a shared holder's buffers: the next call overwrites them
+            z, it, rel = z.clone(), it.clone(), rel.clone()
     return z, it, rel
 
 
@@ -114,7 +138,18 @@ def batched_cell_problems(masks, direction_k: int, eps: float, maxiter: int,
     the solve runs on its device).
 
     Returns ``(chi (B,X,Y,Z) outer_dtype, rel_res (B,), converged (B,))``.
+    On CUDA every refinement round's PCG replays one CUDA graph, released
+    when the call returns.
     """
+    with graphs.solve_graph(masks.device) as graph:
+        return _cell_problems(masks, direction_k, eps, maxiter, dx,
+                              inner_dtype, outer_dtype, max_refine_rounds,
+                              inner_round_cap, precond, cheby_degree, graph)
+
+
+def _cell_problems(masks, direction_k, eps, maxiter, dx, inner_dtype,
+                   outer_dtype, max_refine_rounds, inner_round_cap, precond,
+                   cheby_degree, graph):
     masks = masks.to(torch.bool)
     dev = masks.device
     systems = make_cell_problem_system(masks, direction_k, dx,
@@ -158,7 +193,8 @@ def batched_cell_problems(masks, direction_k: int, eps: float, maxiter: int,
         need = float(eps / worst) * 0.3 if worst > 0 else 1e-5
         round_eps = min(max(1e-5, need), 0.099)
         z, iters, _ = _batched_cg(systems, r_lo, ones, round_eps,
-                                  min(budget, int(inner_round_cap)), M)
+                                  min(budget, int(inner_round_cap)), M,
+                                  _graph=graph)
         z_total = z_total + _lanes(safe) * z.to(outer_dtype)
         budget -= int(iters.max())
         del z, r_lo

@@ -5,7 +5,9 @@ One loop on every device: the top-form PCG recurrence advanced ``chunk``
 iterations at a time with a done-gated iteration counter, and ONE host read
 per chunk (a packed (iterations, done, rel) probe).  Inside a chunk no
 device value is read back, so the card runs the chunk's kernels back to
-back.
+back.  On CUDA an iteration is a CUDA graph (``utils/graphs.py``, the
+counterpart of the JAX package's jitted ``_cg_chunk``): a solve's first
+iteration runs eagerly, every later one is a replay of its capture.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import dataclasses
 
 import torch
 
+from ..utils import graphs
 from .preconditioners import IdentityPreconditioner
 
 
@@ -58,67 +61,109 @@ class ResidualHistory:
         self.outer.append((int(round_i), self._val(rel)))
 
 
+def jacobi_preconditioner(system):
+    """Diagonal scaling of ``system`` (``preconditioners.
+    JacobiPreconditioner``)."""
+    from .preconditioners import JacobiPreconditioner
+
+    return JacobiPreconditioner.from_system(system)
+
+
+_IDENTITY = IdentityPreconditioner()
+
+
 def _dot(a, b):
     return torch.sum(a * b)
 
 
+def _cg_step(system, precond, state, denom, eps):
+    """One guarded top-form PCG iteration (preconditioner applied at the
+    start of the body, ``beta`` from the previous <r, y>), written into the
+    state tensors in place.  Past convergence or breakdown, alpha pins to 0
+    and z, r are fixed points; only the iteration counter is gated."""
+    z, r, p, rz_prev, it, rel, done = state
+    y = precond(r)
+    rz = _dot(r, y)
+    # first iteration: rz_prev = 0 sentinel -> beta = 0, p = y
+    beta = torch.where((rz_prev > 0) & ~done,
+                       rz / torch.where(rz_prev > 0, rz_prev, 1.0), 0.0)
+    torch.add(y, beta * p, out=p)
+    ap, pap = system.apply_with_dot(p)
+    ok = (pap > 0) & ~done
+    alpha = torch.where(ok, rz / torch.where(pap > 0, pap, 1.0), 0.0)
+    torch.add(z, alpha * p, out=z)
+    torch.sub(r, alpha * ap, out=r)
+    rel2 = torch.sqrt(_dot(r, r)) / denom
+    done2 = done | (rel2 <= eps) | (pap <= 0)
+    rz_prev.copy_(rz)
+    it.copy_(torch.where(done, it, it + 1))
+    rel.copy_(torch.where(done, rel, rel2))
+    done.copy_(done2)
+
+
+def _probe(it, rel, done):
+    """The packed (it, done, rel) probe the host reads once per chunk
+    (the arguments in the state's order)."""
+    return (torch.stack([it.to(torch.float64), done.to(torch.float64),
+                         rel.to(torch.float64)]),)
+
+
 def _cg_chunk(system, precond, state, denom, eps, chunk: int):
-    """``chunk`` guarded top-form PCG iterations (preconditioner applied at
-    the start of the body, ``beta`` from the previous <r, y>).  Past
-    convergence or breakdown, alpha pins to 0 and z, r are fixed points;
-    only the iteration counter is gated.  Returns the new state and the
-    packed (it, done, rel) probe, still on the device."""
-    M = precond
+    """``chunk`` iterations of ``_cg_step`` on ``state`` (advanced in
+    place); returns the probe, still on the device."""
     for _ in range(chunk):
-        z, r, p, rz_prev, it, rel, done = state
-        y = M(r)
-        rz = _dot(r, y)
-        # first iteration: rz_prev = 0 sentinel -> beta = 0, p = y
-        beta = torch.where((rz_prev > 0) & ~done,
-                           rz / torch.where(rz_prev > 0, rz_prev, 1.0), 0.0)
-        p = y + beta * p
-        ap, pap = system.apply_with_dot(p)
-        ok = (pap > 0) & ~done
-        alpha = torch.where(ok, rz / torch.where(pap > 0, pap, 1.0), 0.0)
-        z = z + alpha * p
-        r = r - alpha * ap
-        rel2 = torch.sqrt(_dot(r, r)) / denom
-        done2 = done | (rel2 <= eps) | (pap <= 0)
-        state = (z, r, p, rz, torch.where(done, it, it + 1),
-                 torch.where(done, rel, rel2), done2)
-    probe = torch.stack([state[4].to(torch.float64),
-                         state[6].to(torch.float64),
-                         state[5].to(torch.float64)])
-    return state, probe
+        _cg_step(system, precond, state, denom, eps)
+    return _probe(*state[4:])[0]
 
 
 def _cg_chunked_loop(system, r0, denom, eps, maxiter: int, precond,
-                     chunk: int = 16, verbose: int = 0, history=None):
-    """PCG advancing ``chunk`` iterations per host check (see _cg_chunk);
-    the iteration count may overshoot ``maxiter`` by less than a chunk."""
+                     chunk: int = 16, verbose: int = 0, history=None,
+                     _graph=None):
+    """PCG advancing ``chunk`` iterations per host check (see _cg_step);
+    the iteration count may overshoot ``maxiter`` by less than a chunk.
+    On CUDA the iterations replay a CUDA graph (``utils/graphs.py``):
+    ``_graph`` a ``ChunkGraph`` serves several calls (the refinement
+    rounds of one solve), None makes one for this call."""
     dtype = r0.dtype
-    denom = torch.as_tensor(denom, dtype=dtype).to(r0.device)
+    dev = r0.device
+    denom = torch.as_tensor(denom, dtype=dtype).to(dev)
     rel0 = torch.sqrt(_dot(r0, r0)) / denom
     done0 = rel0 <= eps
-    state = (torch.zeros_like(r0), r0, torch.zeros_like(r0),
-             torch.zeros((), dtype=dtype, device=r0.device),
-             torch.zeros((), dtype=torch.int32, device=r0.device), rel0, done0)
-    while True:
-        state, probe = _cg_chunk(system, precond, state, denom, eps, chunk)
-        it_v, done_v, rel_v = probe.tolist()  # ONE read per chunk
-        it = int(it_v)
-        if verbose >= 2:
-            print(f"    cg it={it:5d}  rel_res={rel_v:.6e}")
-        if history is not None:
-            history.record_inner(it, rel_v)
-        if done_v > 0 or it >= maxiter:
-            break
-    z, r, p, rz, it, rel, done = state
+    state = (torch.zeros_like(r0), r0.clone(), torch.zeros_like(r0),
+             torch.zeros((), dtype=dtype, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev), rel0, done0)
+    with graphs.solve_graph(dev, _graph) as holder:
+        if holder:
+            # eps enters as a tensor of the state's dtype: the value a
+            # Python float takes in the comparison, and no frozen constant
+            holder.load(("cg", id(system), id(precond)),
+                        lambda *a: _cg_step(system, precond, a[:7], a[7],
+                                            a[8]),
+                        lambda *a: _probe(*a[4:7]),
+                        state, (denom, torch.full((), eps, dtype=dtype,
+                                                  device=dev)))
+        while True:
+            if holder:
+                (probe,) = holder.run(chunk)
+            else:
+                probe = _cg_chunk(system, precond, state, denom, eps, chunk)
+            it_v, done_v, rel_v = probe.tolist()  # ONE read per chunk
+            it = int(it_v)
+            if verbose >= 2:
+                print(f"    cg it={it:5d}  rel_res={rel_v:.6e}")
+            if history is not None:
+                history.record_inner(it, rel_v)
+            if done_v > 0 or it >= maxiter:
+                break
+        z, r, p, rz, it, rel, done = holder.state if holder else state
+        if holder and holder is _graph:
+            # a shared holder's buffers: the next call overwrites them
+            z, it, rel = z.clone(), it.clone(), rel.clone()
     return SolveResult(z=z, iterations=it, rel_res=rel, converged=rel <= eps)
 
 
 def cg(system, r0, denom, eps, maxiter: int, precond=None, verbose: int = 0,
-       history: ResidualHistory | None = None) -> SolveResult:
+       history: ResidualHistory | None = None, _graph=None) -> SolveResult:
     """Solve ``A z = r0`` on the free set with z0 = 0.
 
     ``denom`` is the relative-residual denominator (pass ``system.b_norm``
@@ -126,9 +171,9 @@ def cg(system, r0, denom, eps, maxiter: int, precond=None, verbose: int = 0,
     ``||r0||``, and to 1 when r0 is zero too.
     """
     if precond is None:
-        precond = IdentityPreconditioner()
+        precond = _IDENTITY  # one object: a shared graph's key holds it
     denom = torch.as_tensor(denom, dtype=r0.dtype).to(r0.device)
     denom = torch.where(denom > 0, denom, torch.sqrt(_dot(r0, r0)))
     denom = torch.where(denom > 0, denom, 1.0)
     return _cg_chunked_loop(system, r0, denom, eps, int(maxiter), precond,
-                            verbose=verbose, history=history)
+                            verbose=verbose, history=history, _graph=_graph)

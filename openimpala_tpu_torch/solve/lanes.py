@@ -16,7 +16,9 @@ as lanes of one solve:
 * the operator apply is L calls of the shared system's K1 matvec+dot, and
   the preconditioner, built once from ``base()``, is applied per lane;
 * iterative refinement (``solve/refine.py``'s policy, lane-wise) runs all
-  lanes through one float64 outer residual per round.
+  lanes through one float64 outer residual per round;
+* on CUDA the iterations of every round of a solve replay one CUDA
+  graph (``utils/graphs.py``), as the mono loop's do.
 
 Memory gate (``use_lanes``): lane state is L times the mono solve's.
 """
@@ -29,9 +31,10 @@ import numpy as np
 import torch
 
 from ..ops.stencil import StencilSystem
+from ..utils import graphs
 from ..utils.common import device_hbm_limit
 from ..utils.profiling import phase_timer
-from .cg import SolveResult
+from .cg import SolveResult, _probe
 
 _VOL = (1, 2, 3)  # the volume axes of an (L, X, Y, Z) stack
 
@@ -107,66 +110,87 @@ class LaneSystem:
             r0_b=self.r0_b.to(dtype), b_norm=self.b_norm.to(dtype))
 
 
+def _lanes_step(lsys, precond, state, denom, eps):
+    """One lockstep PCG iteration over all lanes, written into the state
+    tensors in place: the lane-wise top-form recurrence of ``solve/cg.py::
+    _cg_step``.  A lane that is done pins alpha to 0 and becomes a fixed
+    point; only its counters are gated."""
+    z, r, p, rz_prev, it, rel, done = state
+    L = r.shape[0]
+    ndim = r.dim()
+    y = r if precond is None else torch.stack(
+        [precond(r[i]) for i in range(L)])
+    rz = _lane_dot(r, y)
+    beta = torch.where((rz_prev > 0) & ~done,
+                       rz / torch.where(rz_prev > 0, rz_prev, 1.0), 0.0)
+    torch.add(y, _bcast(beta, ndim) * p, out=p)
+    ap, pap = lsys.apply_with_dot(p)
+    ok = (pap > 0) & ~done
+    alpha = torch.where(ok, rz / torch.where(pap > 0, pap, 1.0), 0.0)
+    torch.add(z, _bcast(alpha, ndim) * p, out=z)
+    torch.sub(r, _bcast(alpha, ndim) * ap, out=r)
+    rel2 = torch.sqrt(_lane_dot(r, r)) / denom
+    done2 = done | (rel2 <= eps) | (pap <= 0)
+    rz_prev.copy_(rz)
+    it.copy_(torch.where(done, it, it + 1))
+    rel.copy_(torch.where(done, rel, rel2))
+    done.copy_(done2)
+
+
 def _cg_chunk_lanes(lsys, precond, state, denom, eps, chunk: int):
-    """``chunk`` lockstep PCG iterations over all lanes: the lane-wise
-    top-form recurrence of ``solve/cg.py::_cg_chunk``.  A lane that is done
-    pins alpha to 0 and becomes a fixed point; only its counters are gated.
-    Returns the new state and the packed (3, L) probe (iterations, done,
-    rel), still on the device."""
-    L = state[1].shape[0]
-    ndim = state[1].dim()
+    """``chunk`` iterations of ``_lanes_step`` on ``state`` (advanced in
+    place); returns the packed (3, L) probe (iterations, done, rel), still
+    on the device."""
     for _ in range(chunk):
-        z, r, p, rz_prev, it, rel, done = state
-        y = r if precond is None else torch.stack(
-            [precond(r[i]) for i in range(L)])
-        rz = _lane_dot(r, y)
-        beta = torch.where((rz_prev > 0) & ~done,
-                           rz / torch.where(rz_prev > 0, rz_prev, 1.0), 0.0)
-        p = y + _bcast(beta, ndim) * p
-        ap, pap = lsys.apply_with_dot(p)
-        ok = (pap > 0) & ~done
-        alpha = torch.where(ok, rz / torch.where(pap > 0, pap, 1.0), 0.0)
-        z = z + _bcast(alpha, ndim) * p
-        r = r - _bcast(alpha, ndim) * ap
-        rel2 = torch.sqrt(_lane_dot(r, r)) / denom
-        done2 = done | (rel2 <= eps) | (pap <= 0)
-        state = (z, r, p, rz, torch.where(done, it, it + 1),
-                 torch.where(done, rel, rel2), done2)
-    probe = torch.stack([state[4].to(torch.float64),
-                         state[6].to(torch.float64),
-                         state[5].to(torch.float64)])
-    return state, probe
+        _lanes_step(lsys, precond, state, denom, eps)
+    return _probe(*state[4:])[0]
 
 
 def cg_lanes(lsys: LaneSystem, r0, denom, eps, maxiter: int, precond,
-             chunk: int = 16, verbose: int = 0, history=None) -> SolveResult:
+             chunk: int = 16, verbose: int = 0, history=None,
+             _graph=None) -> SolveResult:
     """Lockstep PCG on ``(L, ...)`` state, ``chunk`` iterations per host
     read (the mono loop's 16), z0 = 0.  ``denom`` is per lane (a zero one
     falls back to ``||r0_i||``, then to 1); ``precond`` None is the
     identity.  Returns a ``SolveResult`` whose iterations, rel_res and
-    converged are (L,) tensors."""
+    converged are (L,) tensors.  ``_graph``: as in ``solve/cg.py::
+    _cg_chunked_loop``."""
     L = r0.shape[0]
     dev = r0.device
     denom = torch.as_tensor(denom, dtype=r0.dtype).to(dev)
     denom = torch.where(denom > 0, denom, torch.sqrt(_lane_dot(r0, r0)))
     denom = torch.where(denom > 0, denom, 1.0)
     rel0 = torch.sqrt(_lane_dot(r0, r0)) / denom
-    state = (torch.zeros_like(r0), r0, torch.zeros_like(r0),
+    state = (torch.zeros_like(r0), r0.clone(), torch.zeros_like(r0),
              torch.zeros((L,), dtype=r0.dtype, device=dev),
              torch.zeros((L,), dtype=torch.int32, device=dev), rel0,
              rel0 <= eps)
-    while True:
-        state, probe = _cg_chunk_lanes(lsys, precond, state, denom, eps,
-                                       chunk)
-        its, dones, rels_v = probe.tolist()  # ONE read per chunk
-        if verbose >= 2:
-            rels = ", ".join(f"{v:.3e}" for v in rels_v)
-            print(f"    cg-lanes it={int(max(its)):5d}  rel_res=[{rels}]")
-        if history is not None:
-            history.record_inner(int(max(its)), rels_v)
-        if all(d > 0 for d in dones) or int(max(its)) >= maxiter:
-            break
-    z, r, p, rz, it, rel, done = state
+    with graphs.solve_graph(dev, _graph) as holder:
+        if holder:
+            holder.load(("lanes", id(lsys), id(precond)),
+                        lambda *a: _lanes_step(lsys, precond, a[:7], a[7],
+                                               a[8]),
+                        lambda *a: _probe(*a[4:7]),
+                        state, (denom, torch.full((), eps, dtype=r0.dtype,
+                                                  device=dev)))
+        while True:
+            if holder:
+                (probe,) = holder.run(chunk)
+            else:
+                probe = _cg_chunk_lanes(lsys, precond, state, denom, eps,
+                                        chunk)
+            its, dones, rels_v = probe.tolist()  # ONE read per chunk
+            if verbose >= 2:
+                rels = ", ".join(f"{v:.3e}" for v in rels_v)
+                print(f"    cg-lanes it={int(max(its)):5d}  rel_res=[{rels}]")
+            if history is not None:
+                history.record_inner(int(max(its)), rels_v)
+            if all(d > 0 for d in dones) or int(max(its)) >= maxiter:
+                break
+        z, r, p, rz, it, rel, done = holder.state if holder else state
+        if holder and holder is _graph:
+            # a shared holder's buffers: the next call overwrites them
+            z, it, rel = z.clone(), it.clone(), rel.clone()
     return SolveResult(z=z, iterations=it, rel_res=rel, converged=rel <= eps)
 
 
@@ -215,7 +239,8 @@ def solve_system_lanes(lsys: LaneSystem, eps: float, maxiter: int,
                        inner_eps: float = 1e-5, max_refine_rounds: int = 8,
                        inner_round_cap: int = 5000,
                        outer_dtype=torch.float64, precond_opts=None,
-                       verbose: int = 0, history=None, timings=None):
+                       verbose: int = 0, history=None, timings=None,
+                       _graph=None):
     """Solve every lane to ``||b_i - A x_i|| / ||b_i|| <= eps`` with
     ``solve/refine.py::solve_system``'s mixed-precision refinement run in
     lockstep (one outer residual and one inner Krylov per round for all
@@ -226,7 +251,18 @@ def solve_system_lanes(lsys: LaneSystem, eps: float, maxiter: int,
     is a lane-wise copy of solve_system; keep the two in sync.
     ``precond``: a name for ``make_precond`` or a built preconditioner,
     applied per lane.  Returns ``(x_full (L, ...), info)`` with per-lane
-    (L,) iterations, rel_res and converged."""
+    (L,) iterations, rel_res and converged.  ``_graph``: as in
+    ``solve/refine.py::solve_system``."""
+    with graphs.solve_graph(lsys.code.device, _graph) as graph:
+        return _solve_lanes(lsys, eps, maxiter, precond, inner_dtype,
+                            inner_eps, max_refine_rounds, inner_round_cap,
+                            outer_dtype, precond_opts, verbose, history,
+                            timings, graph)
+
+
+def _solve_lanes(lsys, eps, maxiter, precond, inner_dtype, inner_eps,
+                 max_refine_rounds, inner_round_cap, outer_dtype,
+                 precond_opts, verbose, history, timings, graph):
     from .refine import make_precond
 
     L = lsys.lanes
@@ -237,7 +273,7 @@ def solve_system_lanes(lsys: LaneSystem, eps: float, maxiter: int,
         r0 = lsys.initial_residual(torch.zeros_like(lsys.r0_b))
         res = cg_lanes(lsys, r0, lsys.b_norm, eps, maxiter,
                        make_precond(lsys.base(), precond, precond_opts),
-                       verbose=verbose, history=history)
+                       verbose=verbose, history=history, _graph=graph)
         return lsys.assemble_solution(res.z), res
 
     if storage_dtype != inner_dtype:
@@ -293,7 +329,8 @@ def solve_system_lanes(lsys: LaneSystem, eps: float, maxiter: int,
             inner = cg_lanes(lsys, r_lo,
                              torch.ones((L,), dtype=inner_dtype, device=dev),
                              round_eps, min(budget, int(inner_round_cap)),
-                             M_lo, verbose=verbose, history=history)
+                             M_lo, verbose=verbose, history=history,
+                             _graph=graph)
             del r_lo
             z_total = _accumulate_lanes(z_total, scale, inner.z)
             n_it = inner.iterations.cpu().numpy().astype(np.int64)

@@ -10,6 +10,10 @@ The policy matches the JAX package line for line: round-0 residual in the
 storage dtype with the 1e-3 guard, adaptive round tolerance, stagnation
 break, iteration budget, and the final re-measure only when the last round
 left the residual stale.
+
+On CUDA the PCG iterations of every round of a solve replay one CUDA graph
+(``utils/graphs.py``): the round's tolerance enters it as a tensor, and
+the graph and its pool are released when the solve returns.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import math
 
 import torch
 
+from ..utils import graphs
 from ..utils.profiling import phase_timer
 from .cg import SolveResult, cg
 from .fgmres import fgmres
@@ -31,10 +36,11 @@ from .sa import SAMGPreconditioner
 
 
 def _krylov(method: str, system, r0, denom, eps, maxiter, precond,
-            refined: bool = True, verbose: int = 0, history=None):
+            refined: bool = True, verbose: int = 0, history=None,
+            _graph=None):
     if method in ("cg", "pcg"):
         return cg(system, r0, denom, eps, maxiter, precond=precond,
-                  verbose=verbose, history=history)
+                  verbose=verbose, history=history, _graph=_graph)
     if method in ("flexgmres", "gmres", "fgmres"):
         # the FGMRES plateau break is only safe where a refinement outer
         # loop exists to re-scale the residual and continue (``refined``)
@@ -100,7 +106,8 @@ def solve_system(system, x0_free, eps: float, maxiter: int,
                  inner_dtype=torch.float32, inner_eps: float = 1e-5,
                  max_refine_rounds: int = 8, inner_round_cap: int = 5000,
                  outer_dtype=torch.float64, precond_opts=None,
-                 verbose: int = 0, history=None, timings=None):
+                 verbose: int = 0, history=None, timings=None,
+                 _graph=None):
     """Solve the StencilSystem to ``||b - A x|| / ||b_full|| <= eps``.
 
     The system should be stored in ``inner_dtype`` (or the final dtype when
@@ -109,7 +116,20 @@ def solve_system(system, x0_free, eps: float, maxiter: int,
     ``info.rel_res`` the full-system relative residual measured in
     ``outer_dtype``.  ``timings``: optional dict that collects the wall
     seconds of the hierarchy build, outer residuals and inner rounds.
+    ``_graph``: see ``solve/cg.py::_cg_chunked_loop`` (None: one CUDA
+    graph for the whole solve on CUDA).
     """
+    with graphs.solve_graph(system.code.device, _graph) as graph:
+        return _solve_system(system, x0_free, eps, maxiter, method, precond,
+                             inner_dtype, inner_eps, max_refine_rounds,
+                             inner_round_cap, outer_dtype, precond_opts,
+                             verbose, history, timings, graph)
+
+
+def _solve_system(system, x0_free, eps, maxiter, method, precond,
+                  inner_dtype, inner_eps, max_refine_rounds, inner_round_cap,
+                  outer_dtype, precond_opts, verbose, history, timings,
+                  graph):
     storage_dtype = system.r0_b.dtype
     device = system.code.device
 
@@ -117,7 +137,8 @@ def solve_system(system, x0_free, eps: float, maxiter: int,
         r0 = system.initial_residual(x0_free.to(storage_dtype))
         res = _krylov(method, system, r0, system.b_norm, eps, maxiter,
                       make_precond(system, precond, precond_opts),
-                      refined=False, verbose=verbose, history=history)
+                      refined=False, verbose=verbose, history=history,
+                      _graph=graph)
         x_full = system.assemble_solution(x0_free + res.z)
         return x_full, res
 
@@ -171,7 +192,7 @@ def solve_system(system, x0_free, eps: float, maxiter: int,
                             torch.ones((), dtype=inner_dtype, device=device),
                             round_eps, min(budget, int(inner_round_cap)),
                             M_lo, refined=True, verbose=verbose,
-                            history=history)
+                            history=history, _graph=graph)
             z_total = _accumulate(z_total, scale, inner.z)
             n_it = int(inner.iterations)
             total_iters += n_it

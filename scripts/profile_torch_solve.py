@@ -3,7 +3,7 @@
 
     python3 -m scripts.profile_torch_solve [--n 512] [--precond sa]
         [--precond-opts '{"cycle": "w", "coeff_dtype": "bfloat16"}']
-        [--entry tortuosity|deff|rev] [--lanes auto|true|false]
+        [--entry tortuosity|deff|rev] [--lanes auto|true|false] [--eager]
 
 (from the repo root)
 
@@ -17,12 +17,16 @@ the call and of its solve step, the device time of the hand-written
 kernels (K1 to K5) against PyTorch's own kernels, and the top kernels by
 device time; for ``--entry deff``, whether the three cell problems ran as
 lockstep lanes (``--lanes`` is ``effective_diffusivity``'s ``lanes``).
-The last line is one JSON object with those numbers.
+The solvers' PCG chunks run as CUDA graphs, as the entry points run them
+(``utils/graphs.py``); ``--eager`` profiles the eager twin instead
+(``graphs._eager_twin``).  The device's idle milliseconds are the wall
+less the busy time.  The last line is one JSON object with those numbers.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -33,6 +37,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from openimpala_tpu_torch import (
     effective_diffusivity, rev_study, tortuosity)
+from openimpala_tpu_torch.utils import graphs
 from openimpala_tpu_torch.utils.sample_data import make_blobs
 
 HAND = ("k1_stream", "k1_planes", "k1_restrict", "k2_cells", "k3_cells", "k4_planes",
@@ -65,6 +70,9 @@ def main(argv=None):
                     help="--entry deff: run the three cell problems as "
                          "lockstep lanes (true), one after the other "
                          "(false), or as the memory gate decides (auto)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the solvers' chunks eagerly (the twin of the "
+                         "graphed run)")
     args = ap.parse_args(argv)
     lanes = {"auto": "auto", "true": True, "false": False}[args.lanes]
     opts = json.loads(args.precond_opts)
@@ -95,15 +103,20 @@ def main(argv=None):
         out = rev_study(vol, 1, sizes=(64,), num_samples=64, device="cuda")
         return 0, f"converged={sum(s.converged for s in out)}/{len(out)}"
 
-    run()  # build kernels, warm up
-
-    timings = {}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        t0 = time.perf_counter()
-        iterations, what = run(timings)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    mode = graphs._eager_twin() if args.eager else contextlib.nullcontext()
+    with mode:
+        run()  # build kernels, warm up
+        graphs.reset_stats()
+        timings = {}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            iterations, what = run(timings)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    gstats = dict(graphs.stats)
+    print(f"chunks {'eager' if args.eager else 'graphed'}: "
+          + json.dumps(gstats))
     print(f"entry={args.entry} precond={args.precond} "
           f"opts={args.precond_opts} {what} iterations={iterations} "
           f"wall_s={wall:.3f} (under the profiler)")
@@ -121,8 +134,8 @@ def main(argv=None):
                   any(h in r[0] for h in HAND)) / 1e3
     solve_s = timings.get("solve", float("nan"))
     print(f"device busy {busy_ms:.1f} ms of {wall * 1e3:.1f} ms wall "
-          f"({busy_ms / (wall * 1e3):.1%}); of the solve step "
-          f"{solve_s * 1e3:.1f} ms")
+          f"({busy_ms / (wall * 1e3):.1%}; idle {wall * 1e3 - busy_ms:.1f} "
+          f"ms); of the solve step {solve_s * 1e3:.1f} ms")
     print(f"hand-written kernels {hand_ms:.1f} ms, PyTorch kernels and "
           f"copies {busy_ms - hand_ms:.1f} ms")
     print("top kernels by device time (ms total, launches, us each):")
@@ -133,6 +146,8 @@ def main(argv=None):
         "card": card, "n": args.n, "entry": args.entry,
         "precond": args.precond,
         "precond_opts": args.precond_opts, "iterations": iterations,
+        "eager": args.eager, "graphs": gstats,
+        "device_idle_ms": wall * 1e3 - busy_ms,
         "lanes": lanes_ran[0] if lanes_ran else None,
         "wall_s": wall, "steps_s": timings, "device_busy_ms": busy_ms,
         "hand_kernels_ms": hand_ms, "torch_kernels_ms": busy_ms - hand_ms,

@@ -131,6 +131,10 @@ def test_import_leaves_jax_out():
             "import openimpala_tpu_torch.diffusion, openimpala_tpu_torch.config; "
             "import openimpala_tpu_torch.io.native; "
             "import openimpala_tpu_torch.solve.fgmres; "
+            "import openimpala_tpu_torch.solve.warmup; "
+            "import openimpala_tpu_torch.utils.graphs; "
+            "import openimpala_tpu_torch.utils.profiling; "
+            "import openimpala_tpu_torch.props.tortuosity_direct; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'openimpala_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -672,3 +672,267 @@ def test_effective_diffusivity_keeps_a_cuda_phase_on_the_card(
         (vol == 1).mean())
     np.testing.assert_array_equal(got.deff, want.deff)
     assert got.iterations == want.iterations
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the chunks (utils/graphs.py): every graphed solve against
+# its eager twin on the card, bit for bit, launch counters included
+# ---------------------------------------------------------------------------
+
+def _counts():
+    return {k: dict(v) for k, v in sc.snapshot_counts().items()}
+
+
+def _twin(call):
+    """``call()`` graphed, then inside ``_eager_twin()``; each with the
+    launch counters reset just before.  Returns both results, both counts
+    and the graph statistics of the graphed run."""
+    from openimpala_tpu_torch.utils import graphs
+
+    sc.reset_counts()
+    graphs.reset_stats()
+    got = call()
+    torch.cuda.synchronize()
+    counts, stats = _counts(), dict(graphs.stats)
+    sc.reset_counts()
+    with graphs._eager_twin():
+        want = call()
+    torch.cuda.synchronize()
+    return got, want, counts, _counts(), stats
+
+
+def _blob_system(cuda, n=32, kind="flow", dtype=torch.float32):
+    from openimpala_tpu_torch.utils.sample_data import make_blobs
+
+    active = torch.from_numpy(make_blobs(n, 0.4, 0) == 1).to(cuda)
+    if kind == "flow":
+        return st.make_tortuosity_system(active, 0, -1.0, 1.0, dtype=dtype)
+    return st.make_cell_problem_system(active, 0, dtype=dtype)
+
+
+@pytest.mark.parametrize("precond", ["gmg", "mg", "sa", "cheby", "jacobi",
+                                     "none"])
+def test_graphed_cg_equals_eager(cuda, precond):
+    from openimpala_tpu_torch.solve.cg import cg
+    from openimpala_tpu_torch.solve.refine import make_precond
+
+    s = _blob_system(cuda, 48, dtype=torch.float64)
+    M = make_precond(s, precond)
+    r0 = s.initial_residual(torch.zeros_like(s.r0_b))
+    got, want, cg_, ce, stats = _twin(
+        lambda: cg(s, r0, s.b_norm, 1e-13, 3000, precond=M))
+    assert torch.equal(got.z, want.z)
+    its = int(got.iterations)
+    assert its == int(want.iterations) and its > 16
+    assert torch.equal(got.rel_res, want.rel_res)
+    assert cg_ == ce and cg_["launches"]
+    # the first iteration eager, then one capture and a replay for every
+    # other iteration of the whole chunks of 16
+    assert stats["captures"] == 1
+    assert stats["replays"] == 16 * -(-its // 16) - 1
+
+
+def test_graph_serves_every_refinement_round(cuda):
+    """One capture for the solve; each round's tolerance enters as a
+    tensor, so the rounds' different eps reach the graph."""
+    from openimpala_tpu_torch.solve.cg import ResidualHistory
+    from openimpala_tpu_torch.solve.refine import solve_system
+
+    s = _blob_system(cuda, 48)
+    x0 = torch.zeros_like(s.r0_b)
+
+    def run():
+        hist = ResidualHistory()
+        x, info = solve_system(s, x0, eps=1e-11, maxiter=5000,
+                               precond="gmg", history=hist)
+        return x, info, hist
+
+    (xg, ig, hg), (xe, ie, he), cg_, ce, stats = _twin(run)
+    assert torch.equal(xg, xe) and ig.iterations == ie.iterations
+    assert ig.rel_res == ie.rel_res and hg.inner == he.inner
+    assert hg.outer == he.outer and len(hg.outer) >= 3  # several rounds
+    assert cg_ == ce
+    assert stats["captures"] == 1
+
+
+def test_graphed_lanes_equal_eager(cuda):
+    from openimpala_tpu_torch.solve.lanes import (LaneSystem,
+                                                  solve_system_lanes)
+
+    from openimpala_tpu_torch.utils.sample_data import make_blobs
+
+    active = torch.from_numpy(make_blobs(32, 0.4, 0) == 1).to(cuda)
+    lsys = LaneSystem.from_systems([
+        st.make_cell_problem_system(active, k, dtype=torch.float32)
+        for k in range(3)])
+    (xg, ig), (xe, ie), cg_, ce, stats = _twin(
+        lambda: solve_system_lanes(lsys, 1e-9, 5000, precond="gmg"))
+    assert torch.equal(xg, xe)
+    assert ig.iterations == ie.iterations and ig.rel_res == ie.rel_res
+    assert cg_ == ce and stats["captures"] == 1
+
+
+def test_graphed_batched_equals_eager(cuda):
+    from openimpala_tpu_torch.solve.batched import batched_cell_problems
+
+    masks = torch.from_numpy(np.random.default_rng(0).random(
+        (6, 16, 16, 16)) < 0.7).to(cuda)
+    (cg_chi, cg_rel, cg_ok), (ce_chi, ce_rel, ce_ok), cg_, ce, stats = _twin(
+        lambda: batched_cell_problems(masks, 1, 1e-9, 5000))
+    assert torch.equal(cg_chi, ce_chi) and torch.equal(cg_rel, ce_rel)
+    assert bool(cg_ok.all()) and torch.equal(cg_ok, ce_ok)
+    assert cg_ == ce and stats["captures"] == 1
+
+
+def test_graphed_direct_equals_eager_and_cpu(cuda):
+    from openimpala_tpu_torch import tortuosity_direct
+    from openimpala_tpu_torch.utils.sample_data import make_blobs
+
+    vol = make_blobs(16, 0.6, 0)
+    got, want, _, _, stats = _twin(lambda: tortuosity_direct(
+        vol, 1, "X", return_fields=True))
+    assert got.value == want.value and got.iterations == want.iterations
+    assert torch.equal(got.phi, want.phi) and got.residual == want.residual
+    assert stats["captures"] == 1
+    cpu = tortuosity_direct(vol, 1, "X", device="cpu")
+    assert got.iterations == cpu.iterations == 5151
+    assert abs(got.value - cpu.value) <= 1e-9 * abs(cpu.value)
+
+
+@pytest.mark.parametrize("entry", ["tau", "tau-sa", "deff", "deff-seq",
+                                   "rev"])
+def test_entry_points_graphed_equal_eager(cuda, entry):
+    from openimpala_tpu_torch.utils.sample_data import make_blobs
+
+    vol = make_blobs(32, 0.4, 0)
+    if entry.startswith("tau"):
+        pre = "sa" if entry == "tau-sa" else "auto"
+        g, e, cg_, ce, _ = _twin(lambda: tortuosity(vol, 1, "X",
+                                                    precond=pre))
+        assert (g.value, g.iterations, g.rel_res) == \
+            (e.value, e.iterations, e.rel_res)
+    elif entry.startswith("deff"):
+        lanes = entry == "deff"
+        g, e, cg_, ce, _ = _twin(lambda: effective_diffusivity(
+            vol, 1, lanes=lanes))
+        assert g.lanes == lanes
+        np.testing.assert_array_equal(g.deff, e.deff)
+        assert g.iterations == e.iterations
+    else:
+        g, e, cg_, ce, _ = _twin(lambda: rev_study(
+            vol, 1, sizes=(16,), num_samples=8, eps=1e-9))
+        for a, b in zip(g, e):
+            np.testing.assert_array_equal(a.deff, b.deff)
+    assert cg_ == ce and cg_["launches"] and not cg_["plain_on_cuda"]
+
+
+def test_replay_adds_the_captured_counts(cuda):
+    """A replayed step adds exactly what its capture counted, once per
+    replay; the capture itself adds nothing."""
+    from openimpala_tpu_torch.utils import graphs
+
+    x = torch.rand((8, 12, 10), device=cuda)
+    free = x > 0.2
+    w, per = (1.0, 1.0, 1.0), (False, True, False)
+
+    def step(x, dot, diag):
+        y, d = sc.k4_matvec(x, diag, free, w, per, with_dot=True)
+        z = sc.k1_stencil("matvec", y, None,
+                          torch.zeros_like(y, dtype=torch.bfloat16), w, per)
+        x.add_(z * 1e-3)
+        dot.copy_(d)
+
+    def tail(x, dot, diag):
+        return (dot * 2,)
+
+    h = graphs.ChunkGraph()
+    h.load("t", step, tail, (x, torch.zeros((), device=cuda)),
+           (torch.full((), 6.0, device=cuda),))
+    sc.reset_counts()
+    h.run()  # eager, then the capture
+    one = _counts()
+    assert one["launches"] == {"k4_matvec_dot_f32": 1, "k1_matvec_f32": 1}
+    h.run()  # a replay
+    assert {k: dict(v) for k, v in h.graphs["step"][2].items()} == one
+    assert _counts()["launches"] == {"k4_matvec_dot_f32": 2,
+                                     "k1_matvec_f32": 2}
+    (got,) = h.run(3)
+    c = _counts()
+    assert c["launches"] == {"k4_matvec_dot_f32": 5, "k1_matvec_f32": 5}
+    assert sum(c["launches_route_at"].values()) == 5
+    # the state advanced once per step, as eagerly
+    ref, dot = x.clone(), torch.zeros((), device=cuda)
+    for _ in range(5):
+        step(ref, dot, torch.full((), 6.0, device=cuda))
+    torch.testing.assert_close(h.state[0], ref, rtol=0, atol=0)
+    torch.testing.assert_close(got, dot * 2, rtol=0, atol=0)
+    h.close()
+
+
+def test_capture_releases_dead_pools(cuda):
+    """Closed graphs leave their pools reserved until the cache is
+    emptied, which a capture cannot do: holders whose captures need more
+    than the card has left still capture (the capture that runs out of
+    memory empties the cache and tries again), and compute the same."""
+    from openimpala_tpu_torch.utils import graphs
+
+    torch.cuda.empty_cache()
+    n = int(torch.cuda.mem_get_info()[0] * 0.3) // 4
+
+    def step(x):
+        big = torch.ones(n, device=cuda)  # a temporary in the graph's pool
+        x.add_(big[:4])
+
+    def tail(x):
+        return (x.sum(),)
+
+    sums = []
+    for _ in range(4):  # four pools of 0.3 of the card's free memory
+        h = graphs.ChunkGraph()
+        h.load("big", step, tail, (torch.zeros(4, device=cuda),), ())
+        (total,) = h.run(3)
+        sums.append(float(total))
+        h.close()
+    assert sums == [12.0] * 4
+    torch.cuda.empty_cache()
+
+
+def test_warmup_on_card(cuda, monkeypatch):
+    """A handle builds and loads the configuration's kernels; its launches
+    add to no counter; ``warm=`` changes no result; once the kernels are
+    loaded no thread starts."""
+    from openimpala_tpu_torch.props import prime_cell_solver, prime_solver
+    from openimpala_tpu_torch.utils.sample_data import make_blobs
+
+    vol = make_blobs(32, 0.4, 0)
+    monkeypatch.setattr(sc, "_libs", {})  # as in a new process
+    sc.reset_counts()
+    h = prime_solver(vol.shape, "X", precond="sa")
+    assert h is not None
+    h.join()
+    assert h.timing["kernels"] == ["k1", "k3"] and not sc.launches
+    assert tortuosity(vol, 1, "X", precond="sa", warm=h).value == \
+        tortuosity(vol, 1, "X", precond="sa").value
+    sc.reset_counts()
+    h = prime_cell_solver(vol.shape, precond="cheby")
+    h.join()
+    assert h.timing["kernels"] == ["k1", "k4", "k5"] and not sc.launches
+    assert h.timing["built"] == ["k4", "k5"]  # k1 was loaded already
+    assert prime_solver(vol.shape, "X", precond="sa") is None
+
+
+def test_failed_capture_raises(cuda):
+    """A body that reads the device on the host cannot be captured."""
+    from openimpala_tpu_torch.utils import graphs
+
+    h = graphs.ChunkGraph()
+
+    def step(x):
+        x.add_(float(x.sum()))
+
+    h.load("bad", step, lambda x: (x,), (torch.ones(4, device=cuda),), ())
+    sc.reset_counts()
+    with pytest.raises(RuntimeError):
+        h.run()  # the eager step, then the capture that fails
+    assert not h.graphs and not sc.launches
+    torch.cuda.synchronize()
