@@ -104,7 +104,33 @@ Phases (each failure exits non-zero and prints no result line):
                its first ``DIRECT_TWIN_CHECKS`` checks graphed against
                their eager twin, fields bit for bit; wall and steps per
                second;
-4b. graph    - at 128^3, ``tortuosity`` (default and ``sa``), the lanes of
+4b. sharded  - the X-slab decomposition (``openimpala_tpu_torch/parallel/``):
+               ``SHARDED_RANKS`` ranks spawned once the kernels are built
+               and loaded here (``parallel.spawn``), each on its own X
+               slab: ``gloo`` ranks on ``cuda:0`` (``nccl``, one rank per
+               card, where the machine has as many cards); each rank reads
+               its slab of the main volume from a uint8 RAW file
+               (``io.ingest.threshold_sharded``) and runs ``tortuosity``
+               (X, eps 1e-9) on it: tau within 1e-6 of ``main[iso]``,
+               iterations within 2, active_vf equal, the flux conserved,
+               every rank launching K1 matvec+dot, sweep and restrict and
+               both K2 modes, no plain version on a CUDA tensor; per rank
+               the wall, the steps, the peak memory, the halo exchanges
+               and their bytes, the gathers and sums, the percolation
+               method.  Then each rank holds K1 (every mode, the fused dot)
+               against its plain form on its ghost-padded slab of that
+               system (``restrict`` pairing the slab's planes at the seam
+               offset of the slab layout) and K2 (both modes) on the
+               default cycle's sharded coarse levels, each padded by one
+               plane with the seam conductance, and two smaller volumes go
+               through the whole-volume path under the mesh against the
+               single-device call here: 100^3 (slabs of 25 planes, odd:
+               the cycle gathers at the fine level) and 254 x 256^2 (X
+               padded to 256, the outlet at the original face, the cycle
+               on the original's schedule), each with iterations within 2
+               of the single-device call's.  A rank's
+               failure or the world's timeout fails the phase;
+4c. graph    - at 128^3, ``tortuosity`` (default and ``sa``), the lanes of
                ``effective_diffusivity`` and ``rev_study`` (16 crops of
                64^3), graphed against the eager twin: results, iterations
                and every launch counter equal;
@@ -142,6 +168,7 @@ numpy from a seed; fields on the card from a seeded ``torch.Generator``.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -1068,6 +1095,7 @@ def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None):
                          return_fields=True)
         wall = time.perf_counter() - t0
     counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     full = _all_counts()
     gstats = _graph_stats(label)
     rule = auto_method(vol.shape, "cuda")
@@ -1115,7 +1143,8 @@ def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None):
     return {"iterations": res.iterations, "counts": counts, "at": at,
             "plain": plain, "tau": res.value, "mask": res.active,
             "wall_s": wall, "routes": routes, "fine": (n, n, n),
-            "twin_wall_s": twin_wall, "graph": gstats}
+            "twin_wall_s": twin_wall, "graph": gstats,
+            "active_vf": res.active_vf, "peak_mem_GB": peak_gb}
 
 
 _DEFAULT_AT = {}  # edge -> (volume, the default path's tau there)
@@ -1252,6 +1281,21 @@ def _record_fgmres():
         pr.fgmres = solve
 
 
+_RAW = {}  # "dir": where the main volume's RAW file lives; "path": it
+
+
+def _main_raw(vol) -> str:
+    """The main volume as a uint8 RAW file (X fastest), written once and
+    read by the CLI path and the sharded phase; ``main`` removes it."""
+    import os
+
+    if "path" not in _RAW:
+        path = os.path.join(_RAW["dir"], "vol_uint8.raw")
+        np.ascontiguousarray(vol.T, dtype=np.uint8).tofile(path)
+        _RAW["path"] = path
+    return _RAW["path"]
+
+
 def _drive_cli(label, vol, n):
     """The port's CLI in-process on a uint8 RAW file of ``vol``
     (flow_through, X, solver_type = GMRES: FGMRES with the default cycle).
@@ -1277,12 +1321,12 @@ def _drive_cli(label, vol, n):
         handles.append(prime_fn(*a, **kw))
         return handles[-1]
 
+    raw = _main_raw(vol)
     with tempfile.TemporaryDirectory() as tmp:
-        np.ascontiguousarray(vol.T, dtype=np.uint8).tofile(
-            os.path.join(tmp, "vol_uint8.raw"))
         inputs = os.path.join(tmp, "run.inputs")
         with open(inputs, "w") as f:
-            f.write(f"filename = vol_uint8.raw\ndata_path = {tmp}/\n"
+            f.write(f"filename = {os.path.basename(raw)}\n"
+                    f"data_path = {os.path.dirname(raw)}/\n"
                     f"results_path = {tmp}/results/\n"
                     f"raw.width = {vol.shape[0]}\nraw.height = {vol.shape[1]}"
                     f"\nraw.depth = {vol.shape[2]}\nraw.datatype = UINT8\n"
@@ -1685,6 +1729,268 @@ def phase_main(vol, n, host_mask):
                                  f"main[iso] by {rel:.3e}")
     runs["direct"] = _drive_direct("direct")
     return runs
+
+
+SHARDED_RANKS = 4
+SHARDED_TIMEOUT = 300.0  # seconds for the whole world, start-up included
+# the two smaller volumes of the sharded phase: slabs of 25 planes (odd),
+# and an X extent that the ranks do not divide (254 -> 256)
+SHARDED_SMALL = {"odd100": (100, 100), "padded": (256, 254)}
+# what every rank must launch on the 512^3 solve
+SHARDED_KERNELS = ("k1_matvec_dot_f32", "k1_sweep_f32", "k1_restrict_f32",
+                   "k1_matvec_f64", "k2_matvec_f32", "k2_sweep_f32")
+_TAU_KEYS = ("value", "active_vf", "iterations", "rel_res", "flux_in",
+             "flux_out", "flux_rel_diff", "converged", "flux_conserved",
+             "percolation_method")
+
+
+def _small_volume(name):
+    edge, x = SHARDED_SMALL[name]
+    return make_blobs(edge, 0.4, SEED)[:x]
+
+
+def _rank_tau(call, mesh):
+    """``call()`` on this rank with the launch counters, the mesh's
+    statistics and the peak memory zeroed just before and read just
+    after."""
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+    from openimpala_tpu_torch.parallel import mesh as pm
+
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    sc.reset_counts()
+    pm.reset_stats()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    res = call()
+    torch.cuda.synchronize(mesh.device)
+    wall = time.perf_counter() - t0
+    out = {k: getattr(res, k) for k in _TAU_KEYS}
+    peak = torch.cuda.max_memory_allocated(mesh.device)
+    out.update(wall_s=wall, counts=dict(sc.launches),
+               plain=dict(sc.plain_on_cuda), comm=dict(pm.stats),
+               peak_mem_GB=peak / 1e9)
+    return res, out
+
+
+def _slab_kernel_checks(mesh, active):
+    """K1 and K2 against their plain forms on this rank's slab of the
+    flow-through system of ``active`` (float32), in the layouts the
+    sharded cycle gives them: K1, every mode and the fused dot, on the
+    ghost-padded slab (ghost planes from the neighbours, ``restrict``
+    pairing the padded slab's planes); K2, both modes, on each sharded
+    coarse level of the default cycle, the slab padded by one plane
+    (``SlabConductanceLevel.padded``: the seam conductance on the lower
+    ghost plane, the X roll wrapping)."""
+    from openimpala_tpu_torch.ops import stencil as st
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+    from openimpala_tpu_torch.solve.refine import make_precond
+    from openimpala_tpu_torch.solve.slab_mg import SlabConductanceLevel
+
+    dev = mesh.device
+    system = st.make_tortuosity_system(active, 0, -1.0, 1.0,
+                                       dtype=torch.float32, mesh=mesh)
+    code, w = system.code_halo, system.w
+    per = st.slab_periodic(system.periodic)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10 + mesh.rank)
+    x = torch.randn(tuple(active.shape), generator=gen, device=dev)
+    r = torch.randn(tuple(active.shape), generator=gen, device=dev)
+    xp = st.pad_slab(x, mesh)
+    rp = st.pad_slab(r, ghosts=False)
+    del x, r
+    chk = Checker()
+    case = f"rank {mesh.rank} slab " + "x".join(map(str, xp.shape))
+    got, dot = sc.k1_stencil("matvec", xp, None, code, w, per, with_dot=True)
+    want, wdot = st.apply_code_with_dot_plain(xp, code, w, per)
+    chk.close("k1_matvec_dot_f32", got, want, torch.float32, case)
+    chk.dot("k1_matvec_dot_f32", dot, wdot, torch.float32, case)
+    del got, want
+    plain = {"matvec": lambda: st.apply_code_plain(xp, code, w, per),
+             "sweep": lambda: st.smooth_sweep_plain(xp, rp, code, w, per,
+                                                    0.9),
+             "resid": lambda: st.residual_restricted_plain(xp, rp, code, w,
+                                                           per),
+             "restrict": lambda: st.residual_restrict_plain(xp, rp, code, w,
+                                                            per)}
+    for mode, fn in plain.items():
+        got = sc.k1_stencil(mode, xp, None if mode == "matvec" else rp,
+                            code, w, per, omega=0.9)
+        chk.close(f"k1_{mode}_f32", got, fn(), torch.float32, case)
+    out = {"shape": tuple(xp.shape),
+           "route": sc.k1_route(tuple(xp.shape), torch.float32, per)}
+    del xp, rp, got
+    levels = [lvl.padded for lvl in make_precond(system, "auto").levels
+              if isinstance(lvl, SlabConductanceLevel)]
+    require(levels, f"rank {mesh.rank}: the cycle has no sharded coarse "
+                    "level to hold K2 on")
+    for lvl in levels:
+        check_k2(chk, lvl, gen, f"rank {mesh.rank} coarse slab "
+                 + "x".join(map(str, lvl.diag.shape)))
+    out.update(max_err=chk.max_err,
+               k2_shapes=[tuple(lvl.diag.shape) for lvl in levels])
+    return out
+
+
+def _sharded_rank(mesh, raw_path, n, small):
+    """One rank of the ``sharded`` phase (run by ``parallel.spawn``): the
+    main volume's slab from the RAW file into ``tortuosity``, K1 and K2
+    against their plain forms on the slab layouts, then the smaller
+    volumes whole under the
+    mesh.  Returns host values only."""
+    from openimpala_tpu_torch import tortuosity
+    from openimpala_tpu_torch.io import RawReader, threshold_sharded
+
+    dev = mesh.device
+    out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
+           "device": str(dev), "staged": mesh.staged}
+    timings = {}
+
+    def main_call():
+        slab, shape = threshold_sharded(RawReader(raw_path, n, n, n,
+                                                  "UINT8"), 0.5, mesh)
+        out["slab"] = tuple(slab.shape)
+        return tortuosity(slab, 1, "X", eps=1e-9, mesh=mesh,
+                          original_shape=shape, device=dev,
+                          timings=timings, return_fields=True)
+
+    res, out["main"] = _rank_tau(main_call, mesh)
+    out["main"]["step_s"] = timings
+    active = res.active
+    del res
+    out["slab_kernels"] = _slab_kernel_checks(mesh, active)
+    del active
+    torch.cuda.empty_cache()
+    for name, vol in small.items():
+        _, out[name] = _rank_tau(lambda: tortuosity(
+            vol, 1, "X", eps=1e-9, mesh=mesh, device=dev), mesh)
+    return out
+
+
+def _require_sharded_tau(label, got, want_tau, want_vf, want_its):
+    rel = abs(got["value"] - want_tau) / abs(want_tau)
+    require(got["converged"] and got["flux_conserved"],
+            f"sharded[{label}]: converged={got['converged']} "
+            f"flux_conserved={got['flux_conserved']}")
+    require(rel <= 1e-6, f"sharded[{label}]: tau {got['value']!r} differs "
+                         f"from the single-device {want_tau!r} by {rel:.3e}")
+    require(got["active_vf"] == want_vf,
+            f"sharded[{label}]: active_vf {got['active_vf']!r} != "
+            f"{want_vf!r}")
+    require(abs(got["iterations"] - want_its) <= 2,
+            f"sharded[{label}]: {got['iterations']} iterations against "
+            f"{want_its}")
+    return rel
+
+
+def phase_sharded(chk, vol, n, iso):
+    """The X-slab decomposition on ``SHARDED_RANKS`` ranks (module
+    docstring, 4b).  ``iso``: ``main[iso]``'s run.  Returns the launches
+    of the 512^3 solve summed over the ranks."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from openimpala_tpu_torch import tortuosity
+    from openimpala_tpu_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    small = {name: _small_volume(name) for name in SHARDED_SMALL}
+    refs = {}
+    for name, v in small.items():
+        t0 = time.perf_counter()
+        r = tortuosity(v, 1, "X", eps=1e-9, device="cuda")
+        refs[name] = (r.value, r.active_vf, r.iterations)
+        log(f"sharded[{name}] single-device {'x'.join(map(str, v.shape))}: "
+            f"tau={r.value!r} active_vf={r.active_vf!r} "
+            f"iterations={r.iterations} wall_s={time.perf_counter() - t0:.3f}")
+    torch.cuda.empty_cache()  # the ranks need the card's memory
+    log(f"sharded: volumes and single-device references "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if torch.cuda.device_count() >= SHARDED_RANKS:
+        backend, device = "nccl", "cuda"  # one rank per card
+    else:
+        backend, device = "gloo", "cuda:0"  # every rank on the one card
+    log(f"sharded: {SHARDED_RANKS} ranks, backend {backend}, device "
+        f"{device} ({torch.cuda.device_count()} card(s))")
+    raw = _main_raw(vol)  # the CLI path's file
+    tmp = Path(tempfile.mkdtemp(prefix="sharded_"))
+    try:
+        t0 = time.perf_counter()
+        world = spawn.World("chip_smoke:_sharded_rank", SHARDED_RANKS,
+                            args=(str(raw), n, small), backend=backend,
+                            device=device, timeout=SHARDED_TIMEOUT,
+                            workdir=tmp / "world", threads=2)
+        try:
+            ranks = world.wait()
+        except (RuntimeError, TimeoutError) as e:
+            raise SmokeFailure(f"sharded: {e}") from None
+        log(f"sharded: the world ran {time.perf_counter() - t0:.1f} s "
+            f"(spawn, CUDA start-up and every call)")
+        for r, text in enumerate(spawn.run_logs(world.workdir)):
+            for line in text.strip().splitlines()[-5:]:
+                log(f"sharded rank {r} said: {line}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    launches = collections.Counter()
+    for out in ranks:
+        m, rank = out["main"], out["rank"]
+        log(f"sharded[main] rank {rank}/{out['size']} {out['backend']} "
+            f"{out['device']} slab {out['slab']}: tau={m['value']!r} "
+            f"active_vf={m['active_vf']!r} iterations={m['iterations']} "
+            f"rel_res={m['rel_res']!r} flux_rel_diff="
+            f"{m['flux_rel_diff']!r} percolation={m['percolation_method']} "
+            f"wall_s={m['wall_s']:.3f} peak_mem_GB={m['peak_mem_GB']:.2f} "
+            f"host-staged collectives={out['staged']}")
+        log(f"sharded[main] rank {rank} step_s " + json.dumps(
+            {k: round(v, 4) for k, v in m["step_s"].items()}))
+        log(f"sharded[main] rank {rank} comm " + json.dumps(m["comm"])
+            + " launches " + json.dumps(m["counts"], sort_keys=True))
+        missing = [k for k in SHARDED_KERNELS if not m["counts"].get(k)]
+        require(not missing, f"sharded[main] rank {rank}: never launched "
+                             f"{missing}")
+        require(not m["plain"], f"sharded[main] rank {rank}: plain versions "
+                                f"ran on CUDA tensors: {m['plain']}")
+        require(m["counts"]["k1_matvec_dot_f32"] >= m["iterations"],
+                f"sharded[main] rank {rank}: K1 matvec+dot launched "
+                f"{m['counts']['k1_matvec_dot_f32']} times for "
+                f"{m['iterations']} iterations")
+        for key in ("value", "iterations", "active_vf", "rel_res"):
+            require(m[key] == ranks[0]["main"][key],
+                    f"sharded[main]: rank {rank}'s {key} {m[key]!r} differs "
+                    f"from rank 0's {ranks[0]['main'][key]!r}")
+        launches.update(m["counts"])
+        k = out["slab_kernels"]
+        log(f"sharded[slab kernels] rank {rank} K1 on {k['shape']} route "
+            f"{k['route']}, K2 on {k['k2_shapes']}: "
+            + json.dumps({name: f"{e:.2e}" for name, e in
+                          k["max_err"].items()}))
+        for name, e in k["max_err"].items():
+            chk.max_err[name] = max(chk.max_err.get(name, 0.0), e)
+    m = ranks[0]["main"]
+    rel = _require_sharded_tau("main", m, iso["tau"], iso["active_vf"],
+                               iso["iterations"])
+    log(f"sharded[main] {n}^3 on {len(ranks)} ranks: tau={m['value']!r} "
+        f"against main[iso] {iso['tau']!r} (rel {rel:.3e}), iterations "
+        f"{m['iterations']} against {iso['iterations']}, wall_s "
+        f"{max(o['main']['wall_s'] for o in ranks):.3f} against "
+        f"{iso['wall_s']:.3f}, peak_mem_GB per rank "
+        + ", ".join(f"{o['main']['peak_mem_GB']:.2f}" for o in ranks)
+        + f" against {iso.get('peak_mem_GB', float('nan')):.2f}")
+    for name in SHARDED_SMALL:
+        got = ranks[0][name]
+        for out in ranks:
+            require(out[name]["value"] == got["value"],
+                    f"sharded[{name}]: the ranks disagree")
+            require(not out[name]["plain"],
+                    f"sharded[{name}]: plain versions ran on CUDA tensors: "
+                    f"{out[name]['plain']}")
+        rel = _require_sharded_tau(name, got, *refs[name])
+        log(f"sharded[{name}]: tau={got['value']!r} (rel {rel:.3e} to the "
+            f"single-device call) iterations={got['iterations']} "
+            f"percolation={got['percolation_method']} wall_s="
+            f"{max(o[name]['wall_s'] for o in ranks):.3f} comm "
+            + json.dumps(got["comm"]))
+    return dict(launches)
 
 
 def _graph_key(name, out):
@@ -2311,6 +2617,18 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    import shutil
+    import tempfile
+
+    _RAW["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return _main(args, t_start)
+    finally:
+        shutil.rmtree(_RAW.pop("dir"), ignore_errors=True)
+        _RAW.clear()
+
+
+def _main(args, t_start):
     # every kernel is built and loaded in a thread while the volume is made
     from openimpala_tpu_torch.ops import stencil_cuda as sc
     from openimpala_tpu_torch.solve import warmup
@@ -2343,6 +2661,8 @@ def main(argv=None):
             runs = phase_main(vol, args.n, perc["mask_x"])
             del perc
             t0 = _phase_done("main", t0)
+            sharded = phase_sharded(chk, vol, args.n, runs["iso"])
+            t0 = _phase_done("sharded", t0)
             phase_graph(SEED)
             t0 = _phase_done("graph", t0)
             phase_parity(SEED)
@@ -2350,6 +2670,10 @@ def main(argv=None):
             torch.cuda.empty_cache()
             kernels = phase_times(chk, vol, SEED, runs)
             _phase_done("times", t0)
+            for entry in kernels:  # the sharded solve's launches, all ranks
+                if sharded.get(entry["name"]):
+                    entry["launches"] += sharded[entry["name"]]
+                    entry["sharded_launches"] = sharded[entry["name"]]
         except SmokeFailure as e:
             print(f"chip_smoke FAILED: {e}", file=sys.stderr)
             return 1

@@ -16,6 +16,7 @@ from .cathode import (  # noqa: F401
 )
 from .dat import DatReader  # noqa: F401
 from .hdf5 import HDF5Reader  # noqa: F401
+from .ingest import PAD_FILL, threshold_sharded  # noqa: F401
 from .raw import RawDataType, RawReader  # noqa: F401
 from .tiff import TiffReader  # noqa: F401
 from .writers import (  # noqa: F401

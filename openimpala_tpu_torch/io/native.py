@@ -1,8 +1,8 @@
 """ctypes binding to the native C++ runtime (counterpart of
-``openimpala_tpu/io/native.py``): the percolation BFS, the threshold
-decoder, the bit unpacker and the remspot filter.  Not bound: ``pack_eq``
-(the port uploads the raw phase and compares on the card) and
-``bfs_seeded`` (the sharded fill, which the single-device port lacks).
+``openimpala_tpu/io/native.py``): the percolation BFS, the seeded BFS of
+the sharded fill, the threshold decoder, the bit unpacker and the remspot
+filter.  Not bound: ``pack_eq`` (the port uploads the raw phase and
+compares on the card).
 
 The library is the repo's ``native/impala_native.cpp``, compiled by this
 module with ``g++`` and the flags of ``native/Makefile`` on first use into
@@ -91,16 +91,19 @@ def _compile(flags) -> Path:
 def _build() -> Path:
     """The library of the first flag set that compiles (one that was
     built before is taken as it is)."""
-    for flags in FLAG_SETS:
-        if lib_path(flags).exists():
-            return lib_path(flags)
-    errors = []
-    for flags in FLAG_SETS:
-        try:
-            return _compile(flags)
-        except RuntimeError as e:
-            errors.append(str(e))
-    raise RuntimeError("\n".join(errors))
+    from ..utils.common import build_lock
+
+    with build_lock(BUILD_DIR):  # the ranks of a sharded run build once
+        for flags in FLAG_SETS:
+            if lib_path(flags).exists():
+                return lib_path(flags)
+        errors = []
+        for flags in FLAG_SETS:
+            try:
+                return _compile(flags)
+            except RuntimeError as e:
+                errors.append(str(e))
+        raise RuntimeError("\n".join(errors))
 
 
 def get_lib():
@@ -119,6 +122,7 @@ def get_lib():
         lib.impala_threshold_decode.restype = ctypes.c_int
         lib.impala_unpack_bits.restype = ctypes.c_int
         lib.impala_remspot.restype = ctypes.c_int64
+        lib.impala_bfs_seeded.restype = ctypes.c_int64
         _lib = lib
         return _lib
 
@@ -255,3 +259,27 @@ def remspot(phase: np.ndarray):
         _ptr(out, ctypes.c_int32),
     )
     return out, int(flips)
+
+
+def bfs_seeded(phase_ok: np.ndarray, prev_mask: np.ndarray,
+               seeds: np.ndarray):
+    """Incremental seeded BFS, the per-slab step of the sharded
+    percolation (``ops/floodfill.py::percolation_mask_sharded``): expands
+    the ``seeds`` that are open (``phase_ok``) and not yet in
+    ``prev_mask`` over ``phase_ok``.  Returns ``(mask_out, n_new)`` with
+    ``mask_out = prev_mask | newly reached`` (bool) and the count of newly
+    reached cells.  Raises where the library is unavailable."""
+    lib = require_lib()
+    p = np.ascontiguousarray(phase_ok, np.int8)
+    m = np.ascontiguousarray(prev_mask, np.int8)
+    s = np.ascontiguousarray(seeds, np.int8)
+    out = np.empty(p.shape, np.int8)
+    n = lib.impala_bfs_seeded(
+        _ptr(p, ctypes.c_int8), _ptr(m, ctypes.c_int8),
+        _ptr(s, ctypes.c_int8), ctypes.c_int64(p.shape[0]),
+        ctypes.c_int64(p.shape[1]), ctypes.c_int64(p.shape[2]),
+        _ptr(out, ctypes.c_int8),
+    )
+    if n < 0:
+        raise MemoryError("native seeded BFS: allocation failed")
+    return out.view(bool), int(n)

@@ -16,6 +16,11 @@ Three methods with identical results:
 ``flood_fill_device`` (the synchronous dilation of the reference) and
 ``flood_fill_device_raster`` (the int16-event raster fill) are kept for
 cross-validation, as in the JAX package.
+
+On X slabs (``parallel/mesh.py``): ``percolation_mask_sharded``, a native
+BFS per slab and the exchange of the boundary planes, and the packed fill
+with carries across the ranks (``packfill.
+percolation_oneshot_packed_sharded``).
 """
 
 from __future__ import annotations
@@ -236,3 +241,65 @@ def percolation_mask(phase, phase_id: int, direction: int,
     reach_in, reach_out = flood_fill_host(phase_ok, direction)
     active = reach_in & reach_out
     return active, float(active.sum()) / total
+
+
+def percolation_mask_sharded(phase, phase_id: int, direction: int, mesh,
+                             original_shape=None):
+    """Percolation of this rank's X slab ``phase`` (numpy or tensor; ingest
+    padding holds ``io.ingest.PAD_FILL``, in no phase) of a volume
+    decomposed over ``mesh``: a native seeded BFS on every slab, then an
+    exchange of the boundary planes, repeated until the sum over the ranks
+    of the cells newly seeded across a seam is 0 (the JAX package's
+    ``percolation_mask_sharded``; reference parallelFloodFill,
+    ``TortuosityHypre.cpp:297-389``): each BFS is linear in its slab, and
+    the rounds are the crossings of the pore network between slabs,
+    typically 2 to 4.  The seeds sit on the original faces
+    (``original_shape``; default the padded global shape).
+
+    Returns ``(active, active_vf)``: the slab's bool numpy mask and the
+    global active volume fraction (the same on every rank).  Raises where
+    the native library is unavailable."""
+    from ..io import native
+
+    native.require_lib()
+    ok = np.ascontiguousarray(_as_numpy(phase) == phase_id).astype(np.int8)
+    xl = ok.shape[0]
+    x0 = mesh.rank * xl
+    shape = (tuple(original_shape) if original_shape
+             else (xl * mesh.size,) + ok.shape[1:])
+
+    def fill(face: int):
+        mask = np.zeros_like(ok)
+        seeds = np.zeros_like(ok)
+        if direction != 0:
+            seeds[_plane_index(direction, face)] = 1
+        elif x0 <= face < x0 + xl:
+            seeds[face - x0] = 1
+        while True:
+            if seeds.any():
+                out, _ = native.bfs_seeded(ok, mask, seeds)
+                mask = out.view(np.int8)
+            # the planes reached at the slab's faces seed the neighbours
+            lo, hi = (t.cpu().numpy() for t in mesh.exchange(
+                _on(mesh, mask[0]), _on(mesh, mask[-1]), False))
+            seeds = np.zeros_like(ok)
+            seeds[0] = lo & ok[0] & ~mask[0]
+            seeds[-1] |= hi & ok[-1] & ~mask[-1]
+            if int(mesh.allsum(_on(mesh, np.int64(seeds.sum())))) == 0:
+                return mask.view(bool)
+
+    active = fill(0) & fill(shape[direction] - 1)
+    n_active = int(mesh.allsum(_on(mesh, np.int64(active.sum()))))
+    return active, n_active / float(np.prod(shape))
+
+
+def _on(mesh, a):
+    """A host value as a tensor on the mesh's device (what its backend
+    sends)."""
+    return torch.from_numpy(np.array(a)).to(mesh.device)
+
+
+def _plane_index(direction: int, index: int):
+    sl = [slice(None)] * 3
+    sl[direction] = index
+    return tuple(sl)

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.halo import pad_halo
+from ..parallel.halo import halo_exchange_x, pad_halo
 
 
 def _plane(x, axis, index):
@@ -16,7 +16,8 @@ def _plane(x, axis, index):
     return x[tuple(sl)]
 
 
-def boundary_fluxes(phi, active, direction: int, dx=(1.0, 1.0, 1.0)):
+def boundary_fluxes(phi, active, direction: int, dx=(1.0, 1.0, 1.0),
+                    mesh=None, extent: int | None = None):
     """(flux_in, flux_out) at the lo/hi domain faces of ``direction``, as
     0-d tensors in the dtype of ``phi``.
 
@@ -26,7 +27,15 @@ def boundary_fluxes(phi, active, direction: int, dx=(1.0, 1.0, 1.0)):
     (``TortuosityHypre.cpp:1066-1133``).  On an axis one cell long the
     inner planes are the boundary planes themselves (the JAX package's
     indices clamp to the axis), so both face terms are 0.
+
+    Under a ``mesh``, ``phi`` and ``active`` are this rank's X slabs of
+    the global fields and each face's sum is summed over the ranks that
+    hold it; ``extent``: the original X extent (the hi face of X is plane
+    ``extent - 1``, before the padding of the last slab).
     """
+    if mesh is not None:
+        return _boundary_fluxes_slab(phi, active, int(direction), dx, mesh,
+                                     extent)
     direction = int(direction)
     a = active.to(torch.bool)
     d = float(dx[direction])
@@ -47,6 +56,35 @@ def boundary_fluxes(phi, active, direction: int, dx=(1.0, 1.0, 1.0)):
     others = [ax for ax in range(3) if ax != direction]
     face_area_element = float(dx[others[0]]) * float(dx[others[1]])
     return flux_in * face_area_element, flux_out * face_area_element
+
+
+def _boundary_fluxes_slab(phi, active, direction, dx, mesh, extent):
+    """``boundary_fluxes`` on X slabs.  Along Y or Z every rank holds its
+    part of both faces; along X the faces are the global planes 0 and
+    ``extent - 1``, read with one ghost plane on each side of the slab
+    (the inner plane may sit on the neighbouring rank)."""
+    if direction != 0:
+        fin, fout = boundary_fluxes(phi, active, direction, dx)
+        return mesh.allsum(fin), mesh.allsum(fout)
+    X = phi.shape[0]
+    n = X * mesh.size if extent is None else int(extent)
+    x0 = X * mesh.rank
+    php = halo_exchange_x(phi, False, mesh)
+    ap = halo_exchange_x(active.to(torch.bool), False, mesh)
+    d = float(dx[0])
+    zero = torch.zeros((), dtype=phi.dtype, device=phi.device)
+    lo_in, hi_in = min(1, n - 1), max(n - 2, 0)
+    flux_in = flux_out = zero
+    if x0 <= 0 < x0 + X:  # +1: the padded slab's plane of global g
+        b, i = 1 - x0, lo_in - x0 + 1
+        flux_in = torch.sum(torch.where(ap[b] & ap[i],
+                                        -(php[i] - php[b]) / d, zero))
+    if x0 <= n - 1 < x0 + X:
+        b, i = n - 1 - x0 + 1, hi_in - x0 + 1
+        flux_out = torch.sum(torch.where(ap[b] & ap[i],
+                                         -(php[b] - php[i]) / d, zero))
+    face = float(dx[1]) * float(dx[2])
+    return mesh.allsum(flux_in) * face, mesh.allsum(flux_out) * face
 
 
 def active_boundary_counts(active, direction: int):

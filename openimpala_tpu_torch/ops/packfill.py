@@ -174,9 +174,11 @@ def _default_carry_in(prop, gen, reverse: bool):
     return _shift(c_out, 1, 0, reverse)
 
 
-def _sweep_x(o, r, reverse: bool):
+def _sweep_x(o, r, reverse: bool, carry_in_fn=_default_carry_in):
     """One directional X sweep on the packed words: intra-word Kogge-Stone
-    fill, carry-lookahead across word planes, carry-run fill."""
+    fill, carry-lookahead across word planes, carry-run fill.
+    ``carry_in_fn`` resolves the word-level carry recurrence (the sharded
+    fill's crosses ranks)."""
     if not reverse:
         g = _ks_fill_up(o, r)
         gen = g < 0  # the fill reached the word's top bit
@@ -184,19 +186,19 @@ def _sweep_x(o, r, reverse: bool):
         g = _ks_fill_down(o, r)
         gen = (g & 1).to(torch.bool)
     prop = o == _FULL  # a carry crosses the whole word iff fully open
-    c_in = _default_carry_in(prop, gen, reverse)
+    c_in = carry_in_fn(prop, gen, reverse)
     run = _low_run(o) if not reverse else _high_run(o)
     return g | torch.where(c_in, run, torch.zeros((), dtype=run.dtype,
                                                   device=run.device))
 
 
-def fill_round(o, r):
+def fill_round(o, r, carry_in_fn=_default_carry_in):
     """Six directional sweeps (+-X, +-Y, +-Z), the state carried through:
     one round subsumes a 6-neighbour dilation step, so the fixed point is
     BFS reachability, reached in about as many rounds as the hardest path
     changes direction."""
-    r = _sweep_x(o, r, False)
-    r = _sweep_x(o, r, True)
+    r = _sweep_x(o, r, False, carry_in_fn)
+    r = _sweep_x(o, r, True, carry_in_fn)
     for axis in (1, 2):
         for reverse in (False, True):
             r = _scan_semiring(o, r, axis, reverse)
@@ -225,7 +227,12 @@ def packed_fill(o, r, max_rounds: int | None = None):
     return r, rounds
 
 
-def _double_fill(o, seeds_lo, outlet_seeds_fn, max_rounds: int):
+def _changed(new, old) -> bool:
+    return not torch.equal(new, old)
+
+
+def _double_fill(o, seeds_lo, outlet_seeds_fn, max_rounds: int,
+                 carry_in_fn=_default_carry_in, changed_fn=_changed):
     """Inlet fill, then, at its fixed point, the open set becomes the
     inlet-reachable mask and the reach re-seeds from the outlet plane:
     the outlet fill restricted to the inlet-reachable set.  The stage
@@ -234,11 +241,13 @@ def _double_fill(o, seeds_lo, outlet_seeds_fn, max_rounds: int):
     stops where that loop stops.  One host read per round.
 
     ``outlet_seeds_fn(reach_in)`` returns the packed outlet-plane seeds
-    restricted to ``reach_in``.  Returns ``(active, rounds_total)``."""
+    restricted to ``reach_in``; ``carry_in_fn`` and ``changed_fn(new,
+    old)`` (the sharded fill's cross the ranks).  Returns ``(active,
+    rounds_total)``."""
     o_cur, r, stage, changed, it = o, seeds_lo, 0, True, 0
     while (changed or stage == 0) and it < 2 * max_rounds + 2:
-        new = fill_round(o_cur, r)
-        ch = not torch.equal(new, r)
+        new = fill_round(o_cur, r, carry_in_fn)
+        ch = changed_fn(new, r)
         done0 = stage == 0 and not ch
         if done0:  # re-seed from the stage-0 fixed point itself
             o_cur, r, stage = new, outlet_seeds_fn(new), 1
@@ -249,13 +258,15 @@ def _double_fill(o, seeds_lo, outlet_seeds_fn, max_rounds: int):
     return r, it
 
 
-def _face_seeds_packed(o, face: int, direction: int):
-    """Packed seed mask: the open cells of the plane
-    ``{x,y,z}[direction] == face``."""
+def _face_seeds_packed(o, face: int, direction: int, word_offset: int = 0):
+    """Packed seed mask: the open cells of the global plane
+    ``{x,y,z}[direction] == face``.  ``word_offset`` is the global index
+    of this block's first word (nonzero on a rank's slab)."""
     out = torch.zeros_like(o)
     if direction == 0:
-        w, b = face // 32, face % 32
-        torch.bitwise_and(o[w], _bit(b), out=out[w])
+        w, b = face // 32 - word_offset, face % 32
+        if 0 <= w < o.shape[0]:
+            torch.bitwise_and(o[w], _bit(b), out=out[w])
         return out
     sl = [slice(None)] * 3
     sl[direction] = face
@@ -279,3 +290,109 @@ def percolation_oneshot_packed(phase_ok: torch.Tensor, direction: int):
         _max_rounds(o))
     active = unpack_x(words, X)
     return active, active.sum(dtype=torch.int64), rounds
+
+
+
+# ---------------------------------------------------------------------------
+# The sharded driver: X slabs of words over the ranks of a Mesh
+# (``openimpala_tpu/ops/packfill.py:271-399``)
+# ---------------------------------------------------------------------------
+
+
+def _shift_ones(x, k: int, reverse: bool):
+    """One-filled shift along axis 0 (out of range counts as an open
+    path): element i takes the value from i - k (forward) or i + k."""
+    n = x.shape[0]
+    out = torch.ones_like(x)
+    if k < n:
+        (d0, dn), (s0, sn) = _lo_hi(n, k, reverse)
+        out.narrow(0, d0, dn).copy_(x.narrow(0, s0, sn))
+    return out
+
+
+def _prefix_and_exclusive(prop, reverse: bool):
+    """pa[w] = AND of ``prop`` over the slab's words strictly before w in
+    sweep order (True at the first word)."""
+    a = prop
+    n = prop.shape[0]
+    k = 1
+    while k < n:
+        a = a & _shift_ones(a, k, reverse)
+        k *= 2
+    return _shift_ones(a, 1, reverse)
+
+
+def _make_sharded_carry_in(mesh):
+    """The word-level carry across ranks: the slab's own carry-lookahead,
+    then each slab's summary, (A, B) = (a carry crosses the whole slab, the
+    slab generates a carry), composed over the ranks in sweep order from
+    one gather of two (Y, Z) planes per sweep.  The X sweeps are the only
+    place the fill crosses a seam, so this is all of its traffic besides
+    the fixed-point test."""
+
+    def carry_in(prop, gen, reverse: bool):
+        b_loc = _scan_semiring(prop, gen, 0, reverse)  # zero carry-in
+        c_in_loc = _shift(b_loc, 1, 0, reverse)
+        pa = _prefix_and_exclusive(prop, reverse)
+        last = 0 if reverse else prop.shape[0] - 1
+        summary = torch.stack([pa[last] & prop[last], b_loc[last]])
+        parts = mesh.all_gather(summary)  # per rank: (A, B) planes
+        order = (range(mesh.size) if not reverse
+                 else range(mesh.size - 1, -1, -1))
+        c = torch.zeros_like(b_loc[last])
+        c_mine = c
+        for s in order:  # exclusive compose in sweep order
+            if s == mesh.rank:
+                c_mine = c
+            a_s, b_s = parts[s][0], parts[s][1]
+            c = b_s | (a_s & c)
+        return c_in_loc | (pa & c_mine)
+
+    return carry_in
+
+
+def percolation_oneshot_packed_sharded(phase_ok: torch.Tensor,
+                                       direction: int, mesh,
+                                       outlet: int | None = None):
+    """The packed fill of ``percolation_oneshot_packed`` on this rank's X
+    slab ``phase_ok`` (bool, on the mesh's device) of a volume decomposed
+    over ``mesh``: the word carries cross the ranks through one gather of
+    two (Y, Z) planes per X sweep, and the fixed-point test sums the
+    ranks' changes (reference: parallelFloodFill's local fill and
+    boundary exchange, ``TortuosityHypre.cpp:297-389``).
+
+    ``outlet``: global index of the outlet plane along ``direction``
+    (default the last; pass the original extent - 1 when X carries ingest
+    padding).  Returns ``(active, counts, rounds)``: the slab's bool mask,
+    the per-word-plane active counts (int64, (X_local/32,); their sum
+    over the ranks is the active-cell count) and the rounds, or None where
+    the layout is
+    not supported: X not divisible by 32 times the ranks (the JAX
+    package's rule)."""
+    n = mesh.size
+    xl = phase_ok.shape[0]
+    X = xl * n
+    if X % (32 * n) != 0:
+        return None
+    out_face = (X if direction == 0 else phase_ok.shape[direction]) - 1
+    if outlet is not None:
+        out_face = int(outlet)
+    offset = mesh.rank * (xl // 32)  # this slab's first word
+
+    def changed(new, old):
+        diff = torch.ne(new, old).any().to(torch.int64)
+        return bool(mesh.allsum(diff) > 0)
+
+    # the round cap of the GLOBAL sum(dims) + 2 (TortuosityHypre.cpp:328)
+    max_rounds = X + phase_ok.shape[1] + phase_ok.shape[2] + 2
+    o = pack_x(phase_ok)
+    seeds_lo = _face_seeds_packed(o, 0, direction, offset)
+    words, rounds = _double_fill(
+        o, seeds_lo,
+        lambda reach_in: _face_seeds_packed(reach_in, out_face, direction,
+                                            offset),
+        max_rounds, carry_in_fn=_make_sharded_carry_in(mesh),
+        changed_fn=changed)
+    active = unpack_x(words, xl)
+    counts = active.reshape(xl // 32, -1).sum(dim=1, dtype=torch.int64)
+    return active, counts, rounds

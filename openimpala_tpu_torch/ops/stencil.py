@@ -25,6 +25,18 @@ beside them only for a CPU tensor.  Any other device raises.
 ``apply_restricted`` and ``apply_restricted_with_dot``, the operator from
 explicit (diag, free) arrays and optionally over a batch of volumes, go to
 K4 or K5 by the same rule (``restricted_kernel`` says which).
+
+X slabs (``parallel/mesh.py``): a system built with a ``mesh`` holds this
+rank's slab of every field, and its code once more in the slab layout of
+K1 (``code_slab``): two planes of -1 ("not free") on each side of the
+slab.  A stencil on a slab (``slab_stencil``) copies its input into that
+layout, fills the inner plane of each side from the neighbouring rank
+(the ghost plane; the outer one stays 0 and is read by no free cell), and
+runs K1 on the whole padded slab with X clamped: the ghosts carry the
+neighbours' values, K1 writes 0 on the ghost planes and adds nothing for
+them to the fused dot, and ``restrict`` pairs the planes (2k, 2k+1) of
+the padded slab, which are the slab's own pairs whenever the slab's X is
+even; its coarse output comes padded by one plane of 0 on each side.
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ import dataclasses
 
 import torch
 
-from ..parallel.halo import pad_halo
+from ..parallel.halo import fill_ghosts_, pad_halo, pad_halo_slab
 from . import stencil_cuda
 
 Axis = int  # 0=X, 1=Y, 2=Z (matches reference Direction enum)
@@ -57,9 +69,13 @@ def weighted_degree(active, w, periodic, dtype):
     return neighbor_sum(active.to(dtype), w, periodic)
 
 
-def neighbor_count_axes(active, periodic):
-    """Per-axis active-neighbour counts ((cx, cy, cz), each 0..2, int8)."""
-    ap = pad_halo(active.to(torch.int8), periodic)
+def neighbor_count_axes(active, periodic, mesh=None):
+    """Per-axis active-neighbour counts ((cx, cy, cz), each 0..2, int8);
+    under a ``mesh``, of this rank's slab, the X neighbours across a seam
+    from the neighbouring rank's plane."""
+    a8 = active.to(torch.int8)
+    ap = pad_halo(a8, periodic) if mesh is None else pad_halo_slab(
+        a8, periodic, mesh)
     sl = [slice(1, -1)] * 3
     counts = []
     for ax in range(3):
@@ -303,6 +319,76 @@ def residual_restrict(x, r, code, w, periodic):
     return stencil_cuda.k1_stencil("restrict", x, r, code, w, periodic)
 
 
+# ---------------------------------------------------------------------------
+# X slabs: K1 on a ghost-padded slab
+# ---------------------------------------------------------------------------
+
+SLAB_PAD = 2  # planes on each side of a slab in K1's slab layout
+
+
+def code_slab(code):
+    """A slab's code in K1's slab layout: (X+4, Y, Z), two planes of -1
+    (not free) on each side."""
+    pad = _minus_one_bf16(code.device).expand(
+        (SLAB_PAD,) + tuple(code.shape[1:]))
+    return torch.cat([pad, code, pad])
+
+
+def pad_slab(x, mesh=None, periodic_x: bool = False, ghosts: bool = True):
+    """``x`` (X, Y, Z) copied into K1's slab layout (X+4, Y, Z), the outer
+    planes 0; with ``ghosts``, planes 1 and X+2 from the neighbouring
+    ranks (``fill_ghosts_``; with no mesh, the slab's own wrap or 0), else
+    0."""
+    X = x.shape[0]
+    xp = torch.empty((X + 2 * SLAB_PAD,) + tuple(x.shape[1:]),
+                     dtype=x.dtype, device=x.device)
+    xp[:SLAB_PAD].zero_()
+    xp[-SLAB_PAD:].zero_()
+    xp[SLAB_PAD:-SLAB_PAD].copy_(x)
+    if ghosts:
+        fill_ghosts_(xp, SLAB_PAD - 1, X + SLAB_PAD, periodic_x, mesh)
+    return xp
+
+
+def slab_periodic(periodic) -> tuple:
+    """K1's periodic flags on a slab: X clamped (the ghosts carry the
+    wrap), Y and Z as the system's."""
+    return (False, bool(periodic[1]), bool(periodic[2]))
+
+
+def slab_interior(out):
+    """The slab's planes of a K1 output in the slab layout (a contiguous
+    view)."""
+    return out[SLAB_PAD:-SLAB_PAD]
+
+
+def slab_stencil(mode: str, x, r, code_halo, w, periodic, mesh,
+                 omega: float = 0.9):
+    """One K1 mode on this rank's slab (``x``, ``r``: (X, Y, Z); the code
+    in the slab layout, ``code_slab``): the dispatchers above on the
+    ghost-padded copies, K1 on the card, the plain form on the CPU.
+    Returns the slab's output; ``"matvec_dot"`` returns ``(out, dot)``
+    with the dot summed over the ranks; ``"restrict"`` the (X/2, Y/2, Z/2)
+    coarse slab (X even)."""
+    per = slab_periodic(periodic)
+    xp = pad_slab(x, mesh, bool(periodic[0]))
+    rp = None if r is None else pad_slab(r, ghosts=False)
+    if mode == "matvec":
+        return slab_interior(apply_code(xp, code_halo, w, per))
+    if mode == "matvec_dot":
+        out, dot = apply_code_with_dot(xp, code_halo, w, per)
+        if mesh is not None:
+            dot = mesh.allsum(dot)
+        return slab_interior(out), dot
+    if mode == "sweep":
+        return slab_interior(smooth_sweep(xp, rp, code_halo, w, per, omega))
+    if mode == "resid":
+        return slab_interior(residual_restricted(xp, rp, code_halo, w, per))
+    if mode == "restrict":
+        return residual_restrict(xp, rp, code_halo, w, per)[1:-1]
+    raise ValueError(f"unknown K1 mode {mode!r}")
+
+
 @dataclasses.dataclass(frozen=True)
 class StencilSystem:
     """A masked-Laplacian linear system in eliminated (free-set) form.
@@ -320,6 +406,11 @@ class StencilSystem:
     b_norm: torch.Tensor  # ||b_full||_2, 0-d
     w: tuple
     periodic: tuple
+    # X slabs: the rank's Mesh, the code in K1's slab layout, and the
+    # global X extent of the volume where the mesh pads X (None: unpadded)
+    mesh: object = None
+    code_halo: torch.Tensor = None
+    x_extent: int | None = None
 
     @property
     def free(self):
@@ -331,9 +422,17 @@ class StencilSystem:
         return decode_code(self.code, self.w, self.r0_b.dtype)[0]
 
     def apply(self, x):
+        if self.mesh is not None:
+            return slab_stencil("matvec", x, None, self.code_halo, self.w,
+                                self.periodic, self.mesh)
         return apply_code(x, self.code, self.w, self.periodic)
 
     def apply_with_dot(self, x):
+        """``(A x, <x, A x>)``; on a slab the dot is summed over the
+        ranks."""
+        if self.mesh is not None:
+            return slab_stencil("matvec_dot", x, None, self.code_halo,
+                                self.w, self.periodic, self.mesh)
         return apply_code_with_dot(x, self.code, self.w, self.periodic)
 
     def initial_residual(self, x0_free):
@@ -362,12 +461,20 @@ def _weights(dx):
 
 def make_tortuosity_system(active, direction: Axis, vlo: float, vhi: float,
                            dx=(1.0, 1.0, 1.0), dtype=torch.float64,
-                           hi_plane: int | None = None) -> StencilSystem:
+                           hi_plane: int | None = None,
+                           mesh=None,
+                           x_extent: int | None = None) -> StencilSystem:
     """Build the flow-through system for a percolation mask ``active`` (a
     bool tensor; the system lives on its device).
 
     Dirichlet vlo/vhi on the inlet/outlet planes of ``direction``, no-flux
-    elsewhere, non-periodic.  ``hi_plane`` overrides the outlet plane index.
+    elsewhere, non-periodic.  ``hi_plane`` overrides the outlet plane index
+    (a global index).  Under a ``mesh``, ``active`` is this rank's X slab
+    of the (padded) global mask: the neighbour counts read the
+    neighbouring ranks' planes, the inlet plane of X lives on rank 0, the
+    outlet plane on the rank that holds it, and ``b_norm`` sums over the
+    ranks; ``x_extent``, the volume's X extent before the padding, is kept
+    for the multigrid schedule (``solve/slab_mg.py``).
     """
     periodic = (False, False, False)
     w = _weights(dx)
@@ -375,16 +482,19 @@ def make_tortuosity_system(active, direction: Axis, vlo: float, vhi: float,
     dev = active.device
     shape = tuple(active.shape)
     n = shape[direction]
+    x0 = 0
+    if mesh is not None and direction == 0:
+        n, x0 = n * mesh.size, n * mesh.rank
     hi = n - 1 if hi_plane is None else int(hi_plane)
 
-    axes = neighbor_count_axes(active, periodic)
+    axes = neighbor_count_axes(active, periodic, mesh)
     nsum = axes[0] + axes[1] + axes[2]
     # an active cell with NO active neighbours is decoupled BEFORE the
     # Dirichlet overwrite (TortuosityHypreFill.F90:172-181 `cycle`s): an
     # isolated inlet-plane cell becomes an identity row, not a vlo row
     connected = active & (nsum > 0)
 
-    idx = torch.arange(n, device=dev).reshape(
+    idx = torch.arange(x0, x0 + shape[direction], device=dev).reshape(
         [-1 if a == direction else 1 for a in range(3)])
     on_lo = (idx == 0) & connected
     on_hi = (idx == hi) & connected
@@ -401,9 +511,13 @@ def make_tortuosity_system(active, direction: Axis, vlo: float, vhi: float,
     r0_b = torch.zeros((), dtype=dtype, device=dev)
     n_lo = torch.sum(on_lo, dtype=dtype)
     n_hi = torch.sum(on_hi, dtype=dtype)
+    if mesh is not None:
+        n_lo, n_hi = mesh.allsum(n_lo), mesh.allsum(n_hi)
     b_norm = torch.sqrt(vlo * vlo * n_lo + vhi * vhi * n_hi)
     return StencilSystem(code=code, x_forced=x_forced, r0_b=r0_b,
-                         b_norm=b_norm, w=w, periodic=periodic)
+                         b_norm=b_norm, w=w, periodic=periodic, mesh=mesh,
+                         code_halo=None if mesh is None else code_slab(code),
+                         x_extent=None if mesh is None else x_extent)
 
 
 def make_cell_problem_system(active, direction_k: Axis, dx=(1.0, 1.0, 1.0),

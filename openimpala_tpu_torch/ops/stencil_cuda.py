@@ -214,7 +214,13 @@ def build(names=tuple(SOURCES)) -> dict:
     output)}``; the output (with ptxas's register and spill report) is kept
     beside the library as ``<library>.log``.  Raises with the compiler
     output on failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    from ..utils.common import build_lock
+
+    with build_lock(BUILD_DIR):  # the ranks of a sharded run build once
+        return _build(names)
+
+
+def _build(names) -> dict:
     jobs, result = [], {}
     for name in names:
         out = _lib_path(name)

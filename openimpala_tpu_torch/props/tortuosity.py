@@ -13,6 +13,15 @@
 4. boundary fluxes, the conservation gate rel_diff <= 1e-6 (``:794-823``),
    and tau = active_vf / Deff with the reference's NaN/Inf policy
    (``:831-877``).
+
+Under a ``mesh`` (``parallel/mesh.py``, every rank running this driver)
+each rank holds an X slab: the volume is padded in X to the mesh size
+with inactive cells (the outlet of X stays at the original face), the
+percolation runs on the whole volume on every rank or, for a slab from
+``io.ingest.threshold_sharded``, on the slabs (the packed fill with
+carries across the ranks, else the native BFS with plane exchanges), and
+the solve, the fluxes and tau run on the slabs (the reference's box
+decomposition, ``Diffusion.cpp:266-268``, ``TortuosityHypre.cpp:584-585``).
 """
 
 from __future__ import annotations
@@ -24,10 +33,24 @@ import numpy as np
 import torch
 
 from ..ops.filters import remspot
-from ..ops.floodfill import auto_method, percolation_mask, upload_phase
+from ..ops.floodfill import (
+    _phase_ok,
+    auto_method,
+    percolation_mask,
+    percolation_mask_sharded,
+    upload_phase,
+)
 from ..ops.flux import boundary_fluxes
-from ..ops.masks import linear_ramp
+from ..ops.masks import linear_ramp, upload_mask
+from ..ops.packfill import percolation_oneshot_packed_sharded
 from ..ops.stencil import make_tortuosity_system
+from ..parallel.mesh import (
+    Mesh,
+    fingerprint,
+    require_same,
+    resolve_mesh,
+    slab_range,
+)
 from ..solve import warmup
 from ..solve.cg import ResidualHistory
 from ..solve.refine import solve_system
@@ -38,12 +61,24 @@ TINY_FLUX = 1e-15  # reference tiny_flux_threshold, TortuosityHypre.cpp:64
 FLUX_TOL = 1e-6  # reference flux conservation gate, TortuosityHypre.cpp:794
 
 
-def _build_system(active, direction, vlo, vhi, dx, storage):
-    """System + initial guess (the linear ramp on free cells)."""
+def _build_system(active, direction, vlo, vhi, dx, storage, hi_plane=None,
+                  mesh=None, x_extent=None):
+    """System + initial guess (the linear ramp on free cells).  Under a
+    ``mesh``, this rank's slab of them; the ramp of X runs over the padded
+    global extent, as the JAX package's sharded driver's does.
+    ``x_extent``: the volume's X extent before the mesh's padding."""
     sys_ = make_tortuosity_system(active, direction, vlo, vhi, dx,
-                                  dtype=storage)
-    ramp = linear_ramp(tuple(active.shape), direction, vlo, vhi,
-                       dtype=storage, device=active.device)
+                                  dtype=storage, hi_plane=hi_plane,
+                                  mesh=mesh, x_extent=x_extent)
+    shape = tuple(active.shape)
+    if mesh is not None and direction == 0:
+        x0 = mesh.rank * shape[0]
+        ramp = linear_ramp((shape[0] * mesh.size,) + shape[1:], 0, vlo, vhi,
+                           dtype=storage, device=active.device
+                           )[x0:x0 + shape[0]]
+    else:
+        ramp = linear_ramp(shape, direction, vlo, vhi, dtype=storage,
+                           device=active.device)
     x0 = torch.where(sys_.free, ramp,
                      torch.zeros((), dtype=storage, device=active.device))
     return sys_, x0
@@ -110,6 +145,8 @@ def tortuosity(
     device=None,
     timings: dict | None = None,
     warm=None,
+    mesh="auto",
+    original_shape=None,
 ) -> TortuosityResult:
     """Flow-through tortuosity of ``phase_id`` along ``direction`` of the
     (X, Y, Z) volume ``phase`` (numpy array or tensor).
@@ -126,17 +163,57 @@ def tortuosity(
     on CUDA the kernels' build starts here in a thread that overlaps the
     percolation fill (``solve/warmup.py``); either way it is joined, and
     its failure raised, before the solve's first kernel.
+
+    ``mesh``: None (one rank), a ``parallel.mesh.Mesh``, or ``"auto"``
+    (this process group's mesh where one is initialised with more than one
+    rank and the volume has at least ``AUTO_SHARD_MIN_CELLS`` cells; with
+    no group, None).  Under a mesh every rank calls this with the same
+    arguments: one gather of the shapes, the phase id, the direction and a
+    CRC-32 of the volume checks it and raises ``ValueError`` on every rank
+    where they differ (so a job whose ranks each solve a volume of their
+    own, or where one rank alone calls this, passes ``mesh=None``).  The
+    run's device is the mesh's (``device`` is then not read), and the
+    result is the same on every rank but for ``phi`` and ``active``,
+    which are the rank's X slab (cropped to the original extent).
+    ``original_shape``: ``phase``
+    is then this rank's slab from ``io.ingest.threshold_sharded`` (X
+    padded with ``PAD_FILL``) of a volume of that shape; with no mesh, the
+    whole padded volume, which is cropped.
     """
-    dev = resolve_device(device)
+    # a Mesh names its rank's device
+    dev = mesh.device if isinstance(mesh, Mesh) else resolve_device(device)
     direction = parse_direction(direction)
     if not isinstance(phase, torch.Tensor):
         phase = np.asarray(phase)
-    shape = tuple(phase.shape)
+    if original_shape is not None:
+        shape = tuple(int(v) for v in original_shape)
+        # a slab from threshold_sharded is sharded whatever its size
+        mesh = resolve_mesh(mesh, shape, min_cells=0, device=dev)
+        if mesh is None:
+            phase = phase[:shape[0]]
+    else:
+        shape = tuple(phase.shape)
+        mesh = resolve_mesh(mesh, shape, device=dev)
+    slab_in = mesh is not None and original_shape is not None
+    hi_plane = None
+    if mesh is not None:
+        with phase_timer(timings, "mesh_check"):
+            # a slab differs from rank to rank; a whole volume may not
+            require_same(mesh, shape + tuple(phase.shape) + (
+                phase_id, direction, 0 if slab_in else fingerprint(phase)),
+                "tortuosity")
+        dev = mesh.device
+        if (-shape[0]) % mesh.size and direction == 0:
+            hi_plane = shape[0] - 1  # the outlet stays at the original face
     perc = percolation_method
-    if perc == "auto":
+    if perc == "auto" and not slab_in:
         perc = auto_method(shape, dev)
 
     if remspot_passes > 0:
+        if slab_in:
+            raise NotImplementedError(
+                "remspot filtering of a slab is not supported; filter the "
+                "volume before ingest")
         with phase_timer(timings, "remspot"):
             if isinstance(phase, torch.Tensor):
                 phase = remspot(phase, remspot_passes)
@@ -148,12 +225,19 @@ def tortuosity(
         # no early handle from prime_solver: start the build now so that
         # it overlaps the percolation fill
         warm = warmup.maybe_start(precond, device=dev)
-    if perc == "device":  # the mask is made, and stays, on the card
-        with phase_timer(timings, "phase_upload", dev):
-            phase = upload_phase(phase, dev)
-    with phase_timer(timings, "percolation_mask", dev):
-        active, active_vf = percolation_mask(phase, phase_id, direction,
-                                             method=perc, device=dev)
+    if slab_in:
+        with phase_timer(timings, "percolation_mask", dev):
+            active, active_vf, perc = _percolation_slab(
+                phase, phase_id, direction, shape, mesh)
+    else:
+        if perc == "device":  # the mask is made, and stays, on the card
+            with phase_timer(timings, "phase_upload", dev):
+                phase = upload_phase(phase, dev)
+        # under a mesh the whole volume's mask on every rank (the JAX
+        # package's host path), of which each keeps its slab below
+        with phase_timer(timings, "percolation_mask", dev):
+            active, active_vf = percolation_mask(phase, phase_id, direction,
+                                                 method=perc, device=dev)
     del phase
     if warm is not None:
         # before any solver kernel, and on every path out of this call:
@@ -171,16 +255,23 @@ def tortuosity(
         # zero percolation: NaN, matching TortuosityHypre.cpp:170-178,764-777
         return nanres
 
-    if isinstance(active, torch.Tensor):
+    if mesh is not None and not slab_in:  # this rank's slab, X padded
+        with phase_timer(timings, "mask_upload", dev):
+            active_t = upload_mask(active, mesh)
+    elif isinstance(active, torch.Tensor):
         active_t = active
     else:  # a host or native mask
         with phase_timer(timings, "mask_upload", dev):
             active_t = torch.from_numpy(active).to(dev)
     del active
+    if verbose > 0 and mesh is not None:
+        print(f"  Mesh: {mesh.size} ranks ({mesh.backend}), X {shape[0]}->"
+              f"{active_t.shape[0] * mesh.size}")
     storage = dtype if inner_dtype is None else inner_dtype
     with phase_timer(timings, "system_setup", dev):
         system, x0_free = _build_system(active_t, direction, float(vlo),
-                                        float(vhi), tuple(dx), storage)
+                                        float(vhi), tuple(dx), storage,
+                                        hi_plane, mesh, shape[0])
 
     hist = ResidualHistory() if return_history else None
     with phase_timer(timings, "solve", dev):
@@ -191,6 +282,10 @@ def tortuosity(
             timings=timings,
         )
     del system, x0_free
+    if mesh is not None and return_fields:  # the slab's original planes
+        x0, _ = slab_range(mesh, shape[0])
+        keep = max(0, min(active_t.shape[0], shape[0] - x0))
+        x_full, active_t = x_full[:keep], active_t[:keep]
     iterations = int(info.iterations)
     rel_res = float(info.rel_res)
     converged = bool(info.converged)
@@ -206,8 +301,39 @@ def tortuosity(
         )
 
     with phase_timer(timings, "flux", dev):
-        flux_in, flux_out = boundary_fluxes(x_full, active_t, direction, dx)
+        flux_in, flux_out = boundary_fluxes(x_full, active_t, direction, dx,
+                                            mesh=mesh, extent=shape[0])
         flux_in, flux_out = float(flux_in), float(flux_out)
+    return _result(shape, direction, dx, vlo, vhi, active_vf, flux_in,
+                   flux_out, verbose, iterations=iterations, rel_res=rel_res,
+                   converged=converged,
+                   phi=x_full if return_fields else None,
+                   active=active_t if return_fields else None,
+                   history=hist, percolation_method=perc)
+
+
+def _percolation_slab(phase, phase_id, direction, shape, mesh):
+    """The percolation of a slab from ``io.ingest.threshold_sharded``: the
+    packed fill with carries across the ranks where X divides 32 times the
+    ranks, else the native BFS per slab with plane exchanges.  Returns
+    ``(active, active_vf, method)``."""
+    outlet = shape[direction] - 1  # the original face, not the padding
+    phase_ok = _phase_ok(upload_phase(phase, mesh.device), phase_id)
+    res = percolation_oneshot_packed_sharded(phase_ok, direction, mesh,
+                                             outlet=outlet)
+    del phase_ok
+    if res is not None:
+        active, counts, _ = res
+        n_active = int(mesh.allsum(counts.sum()))
+        return active, n_active / float(np.prod(shape)), "device"
+    active, active_vf = percolation_mask_sharded(
+        phase, phase_id, direction, mesh, original_shape=shape)
+    return active, active_vf, "native"
+
+
+def _result(shape, direction, dx, vlo, vhi, active_vf, flux_in, flux_out,
+            verbose, **fields) -> TortuosityResult:
+    """The conservation gate and tau from the two face fluxes."""
     mag_in, mag_out = abs(flux_in), abs(flux_out)
     mag_avg = 0.5 * (mag_in + mag_out)
     if mag_avg > TINY_FLUX:
@@ -240,9 +366,4 @@ def tortuosity(
     return TortuosityResult(
         value=value, deff=deff, active_vf=active_vf,
         flux_in=flux_in, flux_out=flux_out, flux_rel_diff=rel_diff,
-        flux_conserved=flux_conserved, iterations=iterations,
-        rel_res=rel_res, converged=converged, direction=direction,
-        phi=x_full if return_fields else None,
-        active=active_t if return_fields else None,
-        history=hist, percolation_method=perc,
-    )
+        flux_conserved=flux_conserved, direction=direction, **fields)

@@ -8,6 +8,12 @@ device value is read back, so the card runs the chunk's kernels back to
 back.  On CUDA an iteration is a CUDA graph (``utils/graphs.py``, the
 counterpart of the JAX package's jitted ``_cg_chunk``): a solve's first
 iteration runs eagerly, every later one is a replay of its capture.
+
+On X slabs (a system with a ``mesh``) every dot product and norm is summed
+over the ranks, so every rank takes the same branch from the same
+scalars; the step is not captured (a collective of the gloo backend
+cannot be), so a slab solve runs its iterations eagerly, and reads its
+probe after every iteration.
 """
 
 from __future__ import annotations
@@ -72,8 +78,14 @@ def jacobi_preconditioner(system):
 _IDENTITY = IdentityPreconditioner()
 
 
-def _dot(a, b):
-    return torch.sum(a * b)
+def _dot(a, b, mesh=None):
+    """<a, b>; under a ``mesh``, summed over the ranks' slabs."""
+    d = torch.sum(a * b)
+    return d if mesh is None else mesh.allsum(d)
+
+
+def _mesh(system):
+    return getattr(system, "mesh", None)
 
 
 def _cg_step(system, precond, state, denom, eps):
@@ -82,8 +94,9 @@ def _cg_step(system, precond, state, denom, eps):
     state tensors in place.  Past convergence or breakdown, alpha pins to 0
     and z, r are fixed points; only the iteration counter is gated."""
     z, r, p, rz_prev, it, rel, done = state
+    mesh = _mesh(system)
     y = precond(r)
-    rz = _dot(r, y)
+    rz = _dot(r, y, mesh)
     # first iteration: rz_prev = 0 sentinel -> beta = 0, p = y
     beta = torch.where((rz_prev > 0) & ~done,
                        rz / torch.where(rz_prev > 0, rz_prev, 1.0), 0.0)
@@ -93,7 +106,7 @@ def _cg_step(system, precond, state, denom, eps):
     alpha = torch.where(ok, rz / torch.where(pap > 0, pap, 1.0), 0.0)
     torch.add(z, alpha * p, out=z)
     torch.sub(r, alpha * ap, out=r)
-    rel2 = torch.sqrt(_dot(r, r)) / denom
+    rel2 = torch.sqrt(_dot(r, r, mesh)) / denom
     done2 = done | (rel2 <= eps) | (pap <= 0)
     rz_prev.copy_(rz)
     it.copy_(torch.where(done, it, it + 1))
@@ -127,12 +140,18 @@ def _cg_chunked_loop(system, r0, denom, eps, maxiter: int, precond,
     dtype = r0.dtype
     dev = r0.device
     denom = torch.as_tensor(denom, dtype=dtype).to(dev)
-    rel0 = torch.sqrt(_dot(r0, r0)) / denom
+    mesh = _mesh(system)
+    if mesh is not None:
+        # the sums of every iteration already pass through the host: read
+        # the probe after each, so no done-gated iteration runs (each costs
+        # its exchanges)
+        chunk = 1
+    rel0 = torch.sqrt(_dot(r0, r0, mesh)) / denom
     done0 = rel0 <= eps
     state = (torch.zeros_like(r0), r0.clone(), torch.zeros_like(r0),
              torch.zeros((), dtype=dtype, device=dev),
              torch.zeros((), dtype=torch.int32, device=dev), rel0, done0)
-    with graphs.solve_graph(dev, _graph) as holder:
+    with graphs.solve_graph(dev, _graph, mesh) as holder:
         if holder:
             # eps enters as a tensor of the state's dtype: the value a
             # Python float takes in the comparison, and no frozen constant
@@ -173,7 +192,8 @@ def cg(system, r0, denom, eps, maxiter: int, precond=None, verbose: int = 0,
     if precond is None:
         precond = _IDENTITY  # one object: a shared graph's key holds it
     denom = torch.as_tensor(denom, dtype=r0.dtype).to(r0.device)
-    denom = torch.where(denom > 0, denom, torch.sqrt(_dot(r0, r0)))
+    denom = torch.where(denom > 0, denom,
+                        torch.sqrt(_dot(r0, r0, _mesh(system))))
     denom = torch.where(denom > 0, denom, 1.0)
     return _cg_chunked_loop(system, r0, denom, eps, int(maxiter), precond,
                             verbose=verbose, history=history, _graph=_graph)

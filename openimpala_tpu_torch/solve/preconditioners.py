@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..ops import stencil_cuda
+from ..parallel.halo import roll_x
 from ..ops.stencil import (
     _full,
     _minus_one_bf16,
@@ -319,16 +320,27 @@ def _restrict_tri(xf, periodic):
     return xf
 
 
-def fine_conductances(system) -> ConductanceLevel:
+def _roll(x, shift: int, ax: int, mesh=None):
+    """``torch.roll`` along ``ax``; along X under a ``mesh``, of the global
+    array, on slabs (``parallel.halo.roll_x``)."""
+    if ax == 0 and mesh is not None:
+        return roll_x(x, shift, mesh)
+    return torch.roll(x, shift, dims=ax)
+
+
+def fine_conductances(system, mesh=None) -> ConductanceLevel:
     """The fine StencilSystem as a ConductanceLevel (seeds the Galerkin
-    coarsening; level-0 smoothing keeps the packed operator and K1)."""
+    coarsening; level-0 smoothing keeps the packed operator and K1).
+    Under a ``mesh``, this rank's slab: the conductance across the seam to
+    the next rank is the slab's last X plane."""
     free = system.free
     dtype = system.r0_b.dtype
     f = free.to(dtype)
     cs = []
     for ax in range(3):
-        c = f * torch.roll(f, -1, dims=ax) * system.w[ax]
-        if not system.periodic[ax]:
+        c = f * _roll(f, -1, ax, mesh) * system.w[ax]
+        if not system.periodic[ax] and (
+                ax != 0 or mesh is None or mesh.rank == mesh.size - 1):
             c.narrow(ax, c.shape[ax] - 1, 1).zero_()
         cs.append(c)
     diag = system.diag.expand(free.shape).to(dtype)
@@ -336,8 +348,8 @@ def fine_conductances(system) -> ConductanceLevel:
     return ConductanceLevel(diag=diag, cx=cs[0], cy=cs[1], cz=cs[2])
 
 
-def galerkin_coarsen(level: ConductanceLevel,
-                     axes: tuple = (0, 1, 2)) -> ConductanceLevel:
+def galerkin_coarsen(level: ConductanceLevel, axes: tuple = (0, 1, 2),
+                     mesh=None) -> ConductanceLevel:
     """Galerkin coarsening by 2 along ``axes`` (semi-coarsening when a
     strict subset; reference TortuosityHypre.cpp:671-678).
 
@@ -345,11 +357,15 @@ def galerkin_coarsen(level: ConductanceLevel,
       (odd fine index along a), pooled over the other coarsened axes;
     * un-coarsened axis b: c_H = block-sum over the coarsened axes;
     * diag_H = blocksum(surplus) + sum of adjacent c_H.
+
+    Under a ``mesh`` the level is this rank's X slab (an even number of
+    planes where X coarsens): the conductance entering each slab comes
+    from the previous rank.
     """
     c = (level.cx, level.cy, level.cz)
     zero = _zero(level.diag)
     surplus = level.diag - sum(
-        ci + torch.roll(ci, 1, dims=ax) for ax, ci in enumerate(c))
+        ci + _roll(ci, 1, ax, mesh) for ax, ci in enumerate(c))
     surplus_H = _blocksum_axes(torch.where(level.free, surplus, zero), axes)
     cH = []
     for ax, ci in enumerate(c):
@@ -361,7 +377,7 @@ def galerkin_coarsen(level: ConductanceLevel,
         else:
             cH.append(_blocksum_axes(ci, axes))
     diag_H = surplus_H + sum(
-        ci + torch.roll(ci, 1, dims=ax) for ax, ci in enumerate(cH))
+        ci + _roll(ci, 1, ax, mesh) for ax, ci in enumerate(cH))
     diag_H = torch.where(diag_H > 0, diag_H, zero)
     return ConductanceLevel(diag=diag_H, cx=cH[0], cy=cH[1], cz=cH[2])
 
@@ -471,15 +487,19 @@ class GalerkinMGPreconditioner:
                 "spacing) — use the default 'pc' transfers")
         levels = _build_hierarchy(system, schedule) if schedule else ()
         kw["schedule"] = schedule
+        cls._coarse_defaults(kw, shape)
+        return cls(fine=fine, levels=levels, **kw)
+
+    @staticmethod
+    def _coarse_defaults(kw: dict, coarsest):
+        """Auto-scale the Chebyshev coarse solve to the coarsest level's
+        condition number (kappa(D^-1 A) ~ 0.25 N^2, ``coarsest`` its
+        global shape) and pick the degree for a ~0.04 error factor
+        (exp(-2 d / sqrt(ratio))); an explicit option wins."""
         if kw.get("coarse_solver", "cheby") == "cheby":
-            # auto-scale the Chebyshev coarse solve to the coarsest level's
-            # condition number (kappa(D^-1 A) ~ 0.25 N^2) and pick the degree
-            # for a ~0.04 error factor (exp(-2 d / sqrt(ratio)))
-            coarsest = tuple(levels[-1].diag.shape) if levels else tuple(shape)
             kw.setdefault("coarse_ratio", max(64.0, 0.25 * max(coarsest) ** 2))
             kw.setdefault("coarse_sweeps",
                           max(30, round(1.6 * kw["coarse_ratio"] ** 0.5)))
-        return cls(fine=fine, levels=levels, **kw)
 
     # -- smoothing ---------------------------------------------------------
     def _smooth(self, apply_fn, diag, free, x, r, n: int):

@@ -14,6 +14,11 @@ left the residual stale.
 On CUDA the PCG iterations of every round of a solve replay one CUDA graph
 (``utils/graphs.py``): the round's tolerance enters it as a tensor, and
 the graph and its pool are released when the solve returns.
+
+On X slabs (a system with a ``mesh``) the outer residual's norms are
+summed over the ranks, so every rank takes the same branch; the PCG runs
+eagerly (``utils/graphs.py::chunk_graph``) with the default cycle on
+slabs (``solve/slab_mg.py``), Jacobi or none.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 
 from ..utils import graphs
 from ..utils.profiling import phase_timer
-from .cg import SolveResult, cg
+from .cg import SolveResult, _mesh, cg
 from .fgmres import fgmres
 from .preconditioners import (
     ChebyshevPreconditioner,
@@ -33,11 +38,21 @@ from .preconditioners import (
     MultigridPreconditioner,
 )
 from .sa import SAMGPreconditioner
+from .slab_mg import SlabGalerkinMGPreconditioner
+
+
+def _norm(r, mesh):
+    """||r||_2; under a ``mesh``, over every rank's slab."""
+    s = torch.sum(r * r)
+    return torch.sqrt(s if mesh is None else mesh.allsum(s))
 
 
 def _krylov(method: str, system, r0, denom, eps, maxiter, precond,
             refined: bool = True, verbose: int = 0, history=None,
             _graph=None):
+    if _mesh(system) is not None and method not in ("cg", "pcg"):
+        raise NotImplementedError(
+            f"method {method!r} on X slabs is not ported yet; use 'cg'")
     if method in ("cg", "pcg"):
         return cg(system, r0, denom, eps, maxiter, precond=precond,
                   verbose=verbose, history=history, _graph=_graph)
@@ -53,15 +68,17 @@ def _outer_residual(system, x_outer, outer_dtype):
     """free * (b - A x) with the system cast to ``outer_dtype``, and its
     norm."""
     r = system.astype(outer_dtype).initial_residual(x_outer)
-    return r, torch.sqrt(torch.sum(r * r))
+    return r, _norm(r, _mesh(system))
 
 
 def _round0_estimate(system, z_total):
     """Round-0 residual in the Krylov (storage) dtype and its float64 norm:
     the first residual is far above the float32 noise floor."""
     r_hi = system.initial_residual(z_total.to(system.r0_b.dtype))
-    scale = torch.sqrt(torch.sum(r_hi.to(torch.float32) ** 2)
-                       .to(torch.float64))
+    s = torch.sum(r_hi.to(torch.float32) ** 2)
+    if _mesh(system) is not None:
+        s = _mesh(system).allsum(s)
+    scale = torch.sqrt(s.to(torch.float64))
     return r_hi, scale
 
 
@@ -90,6 +107,12 @@ def make_precond(sys_, precond, opts=None):
         return None
     if precond == "jacobi":
         return JacobiPreconditioner.from_system(sys_)
+    if _mesh(sys_) is not None:
+        if precond == "gmg":
+            return SlabGalerkinMGPreconditioner.from_system(sys_, **opts)
+        raise NotImplementedError(
+            f"precond={precond!r} on X slabs is not ported yet; use 'gmg' "
+            "(the default), 'jacobi' or 'none'")
     if precond == "gmg":
         return GalerkinMGPreconditioner.from_system(sys_, **opts)
     if precond in ("sa", "samg"):
@@ -119,7 +142,8 @@ def solve_system(system, x0_free, eps: float, maxiter: int,
     ``_graph``: see ``solve/cg.py::_cg_chunked_loop`` (None: one CUDA
     graph for the whole solve on CUDA).
     """
-    with graphs.solve_graph(system.code.device, _graph) as graph:
+    with graphs.solve_graph(system.code.device, _graph,
+                            _mesh(system)) as graph:
         return _solve_system(system, x0_free, eps, maxiter, method, precond,
                              inner_dtype, inner_eps, max_refine_rounds,
                              inner_round_cap, outer_dtype, precond_opts,

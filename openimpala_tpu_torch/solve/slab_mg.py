@@ -1,0 +1,242 @@
+"""The default Galerkin multigrid cycle on X slabs (the decomposed
+counterpart of ``preconditioners.GalerkinMGPreconditioner``; in the JAX
+package GSPMD partitions the same cycle, ``tests/test_parallel.py::
+test_sharded_galerkin_mg_matches_single_device``).
+
+The hierarchy's schedule is the single-device one, decided on the global
+shape as the user gave it: where the mesh pads X with inactive planes
+(``StencilSystem.x_extent``), on the original extent, so that the levels
+are the original's with dead planes past its end and the cycle, and the
+iterations, are those of the volume on one device.  Where the padded
+extent cannot follow that schedule (an X coarsening meets an odd padded
+extent), the padded shape's own schedule is taken.
+
+A level stays sharded as long as each coarsening pairs X planes inside a
+slab: the transfer from level k to k+1 is rank-local where X does not
+coarsen there or the slab's X extent at level k is even.
+From the first level where that fails, and in any case at the coarsest
+level, the cycle is gathered: the residual entering that level is
+gathered from every rank (one ``all_gather`` per cycle), every rank runs
+the rest of the cycle on the global levels (the single-device code, so
+the same arithmetic), and each keeps its slab of the correction.  The
+coarsest level's Chebyshev solve, some hundred operator applications,
+then costs no exchange at all.  A slab whose X extent is odd (36 over 4
+ranks: 9) is gathered at the fine level: the whole cycle runs replicated,
+while the PCG around it stays sharded.
+
+The sharded levels run the kernels on ghost-padded slabs: the fine level
+K1 (``ops/stencil.py``'s slab layout), the coarse levels K2 on slabs
+padded by one plane, whose ghost planes carry the neighbour's values and
+the conductances across the seams.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops.stencil import StencilSystem, decode_code, slab_stencil
+from ..parallel.halo import halo_exchange_x
+from .preconditioners import (
+    ConductanceLevel,
+    GalerkinMGPreconditioner,
+    fine_conductances,
+    galerkin_coarsen,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabMGLevel:
+    """The fine level on a slab: the packed code (``code``, the slab's;
+    ``code_halo``, K1's slab layout) and K1 through ``slab_stencil``
+    (each call copies its operands into the slab layout with the
+    neighbours' planes as ghosts), for the base class's cycle."""
+
+    code: torch.Tensor
+    code_halo: torch.Tensor
+    w: tuple
+    periodic: tuple
+    mesh: object
+
+    def decode(self, dtype):
+        return decode_code(self.code, self.w, dtype)
+
+    @property
+    def free(self):
+        return self.code > 0
+
+    def _k1(self, mode, x, r=None, omega: float = 0.9):
+        return slab_stencil(mode, x, r, self.code_halo, self.w,
+                            self.periodic, self.mesh, omega=omega)
+
+    def apply(self, x):
+        return self._k1("matvec", x)
+
+    def sweep(self, x, r, omega: float):
+        return self._k1("sweep", x, r, omega)
+
+    def resid(self, x, r):
+        return self._k1("resid", x, r)
+
+    def resid_restrict(self, x, r):
+        return self._k1("restrict", x, r)
+
+
+def _pad1(t, lo=None):
+    """``t`` with one plane on each side of X: ``lo`` (or 0) before, 0
+    after."""
+    z = torch.zeros((1,) + tuple(t.shape[1:]), dtype=t.dtype,
+                    device=t.device)
+    return torch.cat([z if lo is None else lo, t, z]).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabConductanceLevel:
+    """A Galerkin coarse level on a slab: ``diag`` (the slab's, for the
+    cycle's elementwise work) and ``padded``, the level on the slab padded
+    by one X plane on each side, where the lower plane's X conductance is
+    the one across the seam from the previous rank and everything else on
+    the two planes is 0.  ``apply``/``sweep`` copy ``x`` into that layout
+    with the neighbours' planes as ghosts and run K2 on it (the roll form
+    on the CPU), which is the global operator's rows of this slab."""
+
+    diag: torch.Tensor
+    padded: ConductanceLevel
+    mesh: object
+
+    @classmethod
+    def from_slab(cls, lvl: ConductanceLevel, mesh):
+        seam = halo_exchange_x(lvl.cx, True, mesh)[:1]  # previous rank's
+        return cls(diag=lvl.diag, mesh=mesh, padded=ConductanceLevel(
+            diag=_pad1(lvl.diag), cx=_pad1(lvl.cx, seam), cy=_pad1(lvl.cy),
+            cz=_pad1(lvl.cz)))
+
+    @property
+    def free(self):
+        return self.diag > 0
+
+    def apply(self, x):
+        # the X roll of the conductance operator wraps: a periodic
+        # exchange, whose wrap the zero conductance of a clamped X cancels
+        xp = halo_exchange_x(x, True, self.mesh)
+        return self.padded.apply(xp)[1:-1]
+
+    def sweep(self, x, r, omega: float):
+        xp = halo_exchange_x(x, True, self.mesh)
+        return self.padded.sweep(xp, _pad1(r), omega)[1:-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class _GatheredLevel:
+    """The slab of a gathered level's free set (what the cycle above it
+    masks its restricted residual with)."""
+
+    free: torch.Tensor
+
+
+def _slab_of(t, mesh, xloc: int):
+    return t[mesh.rank * xloc:(mesh.rank + 1) * xloc]
+
+
+def _x_pairs(schedule, X: int) -> bool:
+    """Whether an X extent of ``X`` planes halves at every step of
+    ``schedule`` that coarsens X."""
+    for axes in schedule:
+        if 0 in axes:
+            if X % 2:
+                return False
+            X //= 2
+    return True
+
+
+def gather_level(x_local: int, schedule, transfer: str = "pc") -> int:
+    """The first level whose coarsening is not rank-local (a slab of
+    ``x_local`` planes at the fine level), or the coarsest level: where
+    the cycle is gathered."""
+    if transfer != "pc":
+        return 0  # trilinear transfers read across every seam
+    for k, axes in enumerate(schedule):
+        if 0 in axes:
+            if x_local % 2:
+                return k
+            x_local //= 2
+    return len(schedule)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabGalerkinMGPreconditioner(GalerkinMGPreconditioner):
+    """``GalerkinMGPreconditioner`` on X slabs (module docstring): levels
+    below ``gather`` are this rank's slabs, levels from ``gather`` on are
+    global and run by ``glob``, a ``GalerkinMGPreconditioner`` of the same
+    options, on every rank."""
+
+    mesh: object = None
+    glob: GalerkinMGPreconditioner = None
+    gather: int = 0
+
+    @classmethod
+    def from_system(cls, system, max_levels: int = 3, **kw):
+        mesh = system.mesh
+        xloc, Y, Z = (int(v) for v in system.code.shape)
+        gshape = (xloc * mesh.size, Y, Z)
+        live = (system.x_extent or gshape[0], Y, Z)
+        schedule = kw.pop("schedule", None)
+        if schedule is None:
+            schedule = cls._schedule_for(live, system.w, max_levels)
+            if not _x_pairs(schedule, gshape[0]):
+                live = gshape
+                schedule = cls._schedule_for(gshape, system.w, max_levels)
+        schedule = tuple(tuple(a) for a in schedule)
+        coarsest = list(live)
+        for axes in schedule:
+            for a in axes:
+                coarsest[a] //= 2
+        # the coarse solve is scaled to the live coarsest level
+        cls._coarse_defaults(kw, coarsest)
+        g = gather_level(xloc, schedule, kw.get("transfer", "pc"))
+        fine = SlabMGLevel(code=system.code, code_halo=system.code_halo,
+                           w=system.w, periodic=system.periodic, mesh=mesh)
+        if g == 0:
+            gsys = StencilSystem(
+                code=mesh.all_gather_x(system.code),
+                x_forced=system.r0_b.new_zeros(()),
+                r0_b=system.r0_b.new_zeros(()),
+                b_norm=system.b_norm, w=system.w, periodic=system.periodic)
+            glob = GalerkinMGPreconditioner.from_system(
+                gsys, max_levels, schedule=schedule, **kw)
+            opts = {f.name: getattr(glob, f.name) for f in dataclasses.fields(
+                GalerkinMGPreconditioner) if f.name not in ("fine", "levels")}
+            return cls(fine=fine, levels=(), mesh=mesh, glob=glob, gather=0,
+                       **opts)
+        # sharded levels 1 .. g (level g only to be gathered), then global
+        cur, sharded, xl = fine_conductances(system, mesh), [], xloc
+        glevels = []
+        for k, axes in enumerate(schedule, start=1):
+            if k <= g:
+                cur = galerkin_coarsen(cur, axes, mesh)
+                xl = xl // 2 if 0 in axes else xl
+                if k < g:
+                    sharded.append(SlabConductanceLevel.from_slab(cur, mesh))
+                    continue
+                cur = ConductanceLevel(*(mesh.all_gather_x(t) for t in (
+                    cur.diag, cur.cx, cur.cy, cur.cz)))
+            else:
+                cur = galerkin_coarsen(cur, axes)
+            glevels.append(cur)
+        kw["schedule"] = schedule
+        glob = GalerkinMGPreconditioner(
+            fine=None, levels=(None,) * (g - 1) + tuple(glevels), **kw)
+        # level g's slab masks the residual the last sharded level
+        # restricts; deeper levels live in ``glob`` only
+        gathered = (_GatheredLevel(free=_slab_of(glevels[0].free, mesh, xl)),)
+        return cls(fine=fine, levels=tuple(sharded) + gathered
+                   + (None,) * (len(glevels) - 1),
+                   mesh=mesh, glob=glob, gather=g, **kw)
+
+    def _vcycle(self, idx: int, r):
+        if idx == self.gather:
+            # every rank runs the rest of the cycle on the global level
+            e = self.glob._vcycle(idx, self.mesh.all_gather_x(r))
+            return _slab_of(e, self.mesh, r.shape[0])
+        return super()._vcycle(idx, r)

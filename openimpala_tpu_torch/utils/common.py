@@ -4,6 +4,10 @@ port's entry points."""
 
 from __future__ import annotations
 
+import contextlib
+import fcntl
+import os
+
 import torch
 
 DIRECTIONS = {"X": 0, "Y": 1, "Z": 2}
@@ -33,6 +37,22 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def count_true(mask, mesh=None) -> int:
+    """Number of nonzero entries of ``mask`` (int64: voxel counts pass
+    int32 beyond about 1290^3); under a ``mesh`` the sum over every rank's
+    slab."""
+    n = torch.count_nonzero(torch.as_tensor(mask)).to(torch.int64)
+    if mesh is not None:
+        n = mesh.allsum(n)
+    return int(n)
+
+
+def any_true(mask, mesh=None) -> bool:
+    """Whether ``mask`` has a nonzero entry on this rank's slab or, under a
+    ``mesh``, on any rank's."""
+    return count_true(mask, mesh) > 0
+
+
 def device_hbm_limit(device=None) -> int:
     """The memory of ``device`` in bytes (None means the current CUDA
     device): ``torch.cuda.mem_get_info``'s total on CUDA, 0 for the CPU and
@@ -42,3 +62,18 @@ def device_hbm_limit(device=None) -> int:
     if dev.type != "cuda":
         return 0
     return int(torch.cuda.mem_get_info(dev)[1])
+
+
+@contextlib.contextmanager
+def build_lock(directory):
+    """An exclusive lock on ``directory``'s ``.lock`` file for the block,
+    so that several processes (the ranks of a sharded run) never build
+    the same library at once: the first builds, the others wait and find
+    it built."""
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, ".lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)

@@ -50,6 +50,7 @@ entry point exposes it.
 from __future__ import annotations
 
 import contextlib
+import logging
 import threading
 import time
 
@@ -60,6 +61,8 @@ from ..ops import stencil_cuda as sc
 # since reset_stats(): holders captured, steps replayed, capture seconds
 stats = {"captures": 0, "replays": 0, "capture_s": 0.0}
 _local = threading.local()  # .eager: depth of this thread's _eager_twin()
+_said = {"mesh": False}  # the slab solves' eager steps logged once
+_log = logging.getLogger(__name__)
 
 
 def reset_stats():
@@ -169,23 +172,31 @@ class ChunkGraph:
         self.graphs, self.fns, self.buffers = {}, {}, None
 
 
-def chunk_graph(device, graph=None):
+def chunk_graph(device, graph=None, mesh=None):
     """The graph holder a solver runs its chunks through: None (the chunk
-    runs as it is) on a device that is not CUDA or inside
-    ``_eager_twin()``; ``graph`` itself when it is a holder (one capture
-    serving several calls, e.g. every refinement round of a solve); else
-    a new holder."""
-    if (getattr(_local, "eager", 0)
-            or torch.device(device).type != "cuda"):
+    runs as it is) on a device that is not CUDA, inside ``_eager_twin()``
+    or on X slabs (a ``mesh``: a step that sums over ranks through the
+    gloo backend cannot be captured, so slab solves run eagerly, and their
+    launches count as they go); ``graph`` itself when it is a holder (one
+    capture serving several calls, e.g. every refinement round of a
+    solve); else a new holder."""
+    if torch.device(device).type != "cuda" or getattr(_local, "eager", 0):
+        return None
+    if mesh is not None:
+        if not _said["mesh"]:
+            _said["mesh"] = True
+            _log.info("X slabs: the PCG steps run eagerly, not as CUDA "
+                      "graphs (a collective of the gloo backend cannot be "
+                      "captured)")
         return None
     return graph if graph is not None else ChunkGraph()
 
 
 @contextlib.contextmanager
-def solve_graph(device, graph=None):
+def solve_graph(device, graph=None, mesh=None):
     """``chunk_graph`` for one solve: a holder made here is closed when
     the block ends, so its graphs do not outlive the solve."""
-    holder = chunk_graph(device, graph)
+    holder = chunk_graph(device, graph, mesh)
     try:
         yield holder
     finally:

@@ -135,6 +135,8 @@ def test_import_leaves_jax_out():
             "import openimpala_tpu_torch.utils.graphs; "
             "import openimpala_tpu_torch.utils.profiling; "
             "import openimpala_tpu_torch.props.tortuosity_direct; "
+            "import openimpala_tpu_torch.parallel.checks; "
+            "import openimpala_tpu_torch.parallel.spawn; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'openimpala_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

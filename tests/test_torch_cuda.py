@@ -936,3 +936,37 @@ def test_failed_capture_raises(cuda):
         h.run()  # the eager step, then the capture that fails
     assert not h.graphs and not sc.launches
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape,dx", [((12, 18, 16), (1.0, 1.0, 1.0)),
+                                      ((16, 8, 256), (1.0, 1.0, 2.0))])
+def test_k1_on_the_slab_layout_matches_plain(cuda, shape, dx):
+    """K1 on a slab in ``ops/stencil.py``'s slab layout (two planes of -1
+    code on each side of X, ghosts from the slab's own clamp) against the
+    plain forms; ``restrict`` pairs the padded planes, so the slab's own
+    pairs come out between two planes of 0."""
+    s = _system("flow", shape, dx, torch.float32, cuda)
+    code = st.code_slab(s.code)
+    per = st.slab_periodic(s.periodic)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    xp = st.pad_slab(torch.randn(shape, generator=g, device=cuda))
+    rp = st.pad_slab(torch.randn(shape, generator=g, device=cuda),
+                     ghosts=False)
+    for mode, plain in (
+            ("matvec", lambda: st.apply_code_plain(xp, code, s.w, per)),
+            ("sweep", lambda: st.smooth_sweep_plain(xp, rp, code, s.w, per,
+                                                    0.9)),
+            ("resid", lambda: st.residual_restricted_plain(xp, rp, code,
+                                                           s.w, per)),
+            ("restrict", lambda: st.residual_restrict_plain(xp, rp, code,
+                                                            s.w, per))):
+        got = sc.k1_stencil(mode, xp, None if mode == "matvec" else rp,
+                            code, s.w, per, omega=0.9)
+        torch.testing.assert_close(got, plain(), **TOL[torch.float32])
+    out = sc.k1_stencil("restrict", xp, rp, code, s.w, per)
+    assert (out[0] == 0).all() and (out[-1] == 0).all()
+    # the slab's own pairs: the single-volume restrict of the slab
+    want = st.residual_restrict_plain(
+        xp[2:-2].contiguous(), rp[2:-2].contiguous(), s.code, s.w,
+        s.periodic)
+    torch.testing.assert_close(out[1:-1], want, **TOL[torch.float32])
