@@ -128,8 +128,36 @@ Phases (each failure exits non-zero and prints no result line):
                the cycle gathers at the fine level) and 254 x 256^2 (X
                padded to 256, the outlet at the original face, the cycle
                on the original's schedule), each with iterations within 2
-               of the single-device call's.  A rank's
-               failure or the world's timeout fails the phase;
+               of the single-device call's.  ``sharded[deff]``:
+               each rank passes the same slab of the main volume
+               to ``effective_diffusivity`` (eps 1e-9, the periodic cell
+               problems on slabs, the X wrap across the seam between the
+               last rank and rank 0): the tensor within 1e-6 (of its
+               largest entry) of ``main[deff]``'s, iterations within 2 per
+               direction, the lockstep lanes taken where the rank-aware
+               ``use_lanes`` gate admits them (it must at 512^3), the same
+               bits on every rank, K1 matvec+dot, sweep, restrict and f64
+               matvec and both K2 modes launched on every rank and no
+               plain version on a CUDA tensor; per rank the wall, the
+               steps, the peak memory, the halo, gather and sum traffic.
+               K1 (every mode, the fused dot, rank 0's ghost the last
+               rank's plane) and K2 (both modes, rank 0's ghost
+               conductance the wrap's) are held against their plain forms
+               again on the slab of that periodic cell problem, and their
+               errors join the kernels line's K1 and K2 entries.  A rank's
+               failure or the world's timeout fails the phase.  Then
+               ``sharded[cli]``: the port's CLI under ``python -m
+               torch.distributed.run --standalone --nproc_per_node 4``
+               (gloo on the one card) on a 256 x 256 x 254 blobs volume
+               written as an uncompressed multi-page TIFF
+               (``calculation_method = homogenization``; Z = 254 does not
+               divide by 4, so the Z-page split pads): return code 0, rank
+               0's printed tensor within 1e-6 of a single-card
+               ``effective_diffusivity`` call here on the same volume, no
+               output from the other ranks, the ingest's all-to-all bytes
+               logged, and each rank's launches in the calculation
+               (``OPENIMPALA_LAUNCH_COUNTS``) held as ``sharded[deff]``'s
+               are: K1 and K2 launched, no plain version on a CUDA tensor;
 4c. graph    - at 128^3, ``tortuosity`` (default and ``sa``), the lanes of
                ``effective_diffusivity`` and ``rev_study`` (16 crops of
                64^3), graphed against the eager twin: results, iterations
@@ -1065,9 +1093,34 @@ def _eager_twin(call):
     return out, _all_counts(), wall
 
 
-def _require_twin(label, got, want, counts, twin_counts):
+def _inner(history):
+    """A result's inner residual records, as one list: (solve, iteration,
+    rel_res) for each chunk of each solve (``history`` a ResidualHistory
+    or a tuple of them; a lanes solve's rel_res is one per lane)."""
+    hists = history if isinstance(history, tuple) else (history,)
+    return [(i, it, rel) for i, h in enumerate(hists) if h is not None
+            for it, rel in h.inner]
+
+
+def _require_twin(label, got, want, counts, twin_counts, hists=None):
     """A graphed run and its eager twin: the same result and iterations
-    (``got``, ``want``: comparable keys) and every counter equal."""
+    (``got``, ``want``: comparable keys) and every counter equal.  On a
+    difference, ``hists`` (the two runs' ``history``) are printed up to
+    the first chunk where their residuals differ, with both runs' K1
+    launches by route and extent, before the check fails."""
+    if got != want and hists is not None:
+        a, b = (_inner(h) for h in hists)
+        first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+        log(f"main[{label}] twin mismatch: residual histories up to the "
+            f"first differing chunk ({first}; solve, iteration, rel_res):")
+        log(f"main[{label}]   graphed {json.dumps(a[:first + 1])}")
+        log(f"main[{label}]   eager   {json.dumps(b[:first + 1])}")
+        for name, c in (("graphed", counts), ("eager", twin_counts)):
+            log(f"main[{label}]   {name} k1_routes " + json.dumps(
+                {f"{k} {route} {'x'.join(map(str, shp))}": v for
+                 (k, route, shp), v in sorted(
+                     c["launches_route_at"].items())}))
     require(got == want, f"main[{label}]: graphed {got!r} against its eager "
                          f"twin {want!r}")
     diff = {k: (counts[k], twin_counts[k]) for k in counts
@@ -1092,7 +1145,7 @@ def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None):
         t0 = time.perf_counter()
         res = tortuosity(vol, 1, "X", eps=1e-9, dx=dx, precond=precond,
                          precond_opts=opts, device="cuda", timings=timings,
-                         return_fields=True)
+                         return_fields=True, return_history=True)
         wall = time.perf_counter() - t0
     counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1133,13 +1186,13 @@ def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None):
             f"main[{label}]: the PCG chunks were not replayed: {gstats}")
     twin, twin_counts, twin_wall = _eager_twin(lambda: tortuosity(
         vol, 1, "X", eps=1e-9, dx=dx, precond=precond, precond_opts=opts,
-        device="cuda"))
+        device="cuda", return_history=True))
     log(f"main[{label}] eager twin: tau={twin.value!r} "
         f"iterations={twin.iterations} rel_res={twin.rel_res!r} "
         f"wall_s={twin_wall:.3f} (graphed {wall:.3f})")
     _require_twin(label, (res.value, res.iterations, res.rel_res),
                   (twin.value, twin.iterations, twin.rel_res), full,
-                  twin_counts)
+                  twin_counts, (res.history, twin.history))
     return {"iterations": res.iterations, "counts": counts, "at": at,
             "plain": plain, "tau": res.value, "mask": res.active,
             "wall_s": wall, "routes": routes, "fine": (n, n, n),
@@ -1426,7 +1479,8 @@ def _drive_deff(label, vol, n, dx, precond):
     _reset()
     t0 = time.perf_counter()
     res = effective_diffusivity(vol, 1, eps=1e-9, dx=dx, precond=precond,
-                                device="cuda", timings=timings)
+                                device="cuda", timings=timings,
+                                return_history=True)
     wall = time.perf_counter() - t0
     counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
     full = _all_counts()
@@ -1483,17 +1537,18 @@ def _drive_deff(label, vol, n, dx, precond):
     eager, eager_counts, eager_wall = _eager_twin(
         lambda: effective_diffusivity(vol, 1, eps=1e-9, dx=dx,
                                       precond=precond, device="cuda",
-                                      lanes=res.lanes))
+                                      lanes=res.lanes, return_history=True))
     log(f"main[{label}] eager twin: lanes={eager.lanes} "
         f"D_xx={eager.deff[0, 0]!r} iterations={eager.iterations} "
         f"wall_s={eager_wall:.3f} (graphed {wall:.3f})")
     _require_twin(label, (res.deff.tolist(), res.iterations, res.rel_res),
                   (eager.deff.tolist(), eager.iterations, eager.rel_res),
-                  full, eager_counts)
+                  full, eager_counts, (res.history, eager.history))
     return {"iterations": its, "counts": counts, "at": {}, "plain": plain,
             "wall_s": wall, "routes": routes, "fine": (n, n, n),
             "value": float(res.deff[0, 0]), "twin_wall_s": eager_wall,
-            "graph": gstats}
+            "graph": gstats, "deff": res.deff, "per_direction":
+            tuple(res.iterations), "peak_mem_GB": peak / 1e9}
 
 
 def _drive_rev(label, vol, n, dx):
@@ -1749,10 +1804,10 @@ def _small_volume(name):
     return make_blobs(edge, 0.4, SEED)[:x]
 
 
-def _rank_tau(call, mesh):
+def _rank_tau(call, mesh, keys=_TAU_KEYS):
     """``call()`` on this rank with the launch counters, the mesh's
     statistics and the peak memory zeroed just before and read just
-    after."""
+    after; ``keys``: the result's fields to return."""
     from openimpala_tpu_torch.ops import stencil_cuda as sc
     from openimpala_tpu_torch.parallel import mesh as pm
 
@@ -1764,7 +1819,7 @@ def _rank_tau(call, mesh):
     res = call()
     torch.cuda.synchronize(mesh.device)
     wall = time.perf_counter() - t0
-    out = {k: getattr(res, k) for k in _TAU_KEYS}
+    out = {k: getattr(res, k) for k in keys}
     peak = torch.cuda.max_memory_allocated(mesh.device)
     out.update(wall_s=wall, counts=dict(sc.launches),
                plain=dict(sc.plain_on_cuda), comm=dict(pm.stats),
@@ -1772,33 +1827,34 @@ def _rank_tau(call, mesh):
     return res, out
 
 
-def _slab_kernel_checks(mesh, active):
-    """K1 and K2 against their plain forms on this rank's slab of the
-    flow-through system of ``active`` (float32), in the layouts the
-    sharded cycle gives them: K1, every mode and the fused dot, on the
-    ghost-padded slab (ghost planes from the neighbours, ``restrict``
-    pairing the padded slab's planes); K2, both modes, on each sharded
-    coarse level of the default cycle, the slab padded by one plane
-    (``SlabConductanceLevel.padded``: the seam conductance on the lower
-    ghost plane, the X roll wrapping)."""
+def _slab_kernel_checks(mesh, system, label):
+    """K1 and K2 against their plain forms on this rank's slab of
+    ``system`` (float32: the flow-through system, or a periodic cell
+    problem, whose ghosts carry the X wrap across the seam between the
+    last rank and rank 0), in the layouts the sharded cycle gives them:
+    K1, every mode and the fused dot, on the ghost-padded slab (ghost
+    planes from the neighbours, ``restrict`` pairing the padded slab's
+    planes); K2, both modes, on each sharded coarse level of the default
+    cycle, the slab padded by one plane (``SlabConductanceLevel.padded``:
+    the seam conductance on the lower ghost plane, rank 0's the wrap's
+    where X is periodic, the X roll wrapping)."""
     from openimpala_tpu_torch.ops import stencil as st
     from openimpala_tpu_torch.ops import stencil_cuda as sc
     from openimpala_tpu_torch.solve.refine import make_precond
     from openimpala_tpu_torch.solve.slab_mg import SlabConductanceLevel
 
     dev = mesh.device
-    system = st.make_tortuosity_system(active, 0, -1.0, 1.0,
-                                       dtype=torch.float32, mesh=mesh)
     code, w = system.code_halo, system.w
     per = st.slab_periodic(system.periodic)
     gen = torch.Generator(device=dev).manual_seed(SEED + 10 + mesh.rank)
-    x = torch.randn(tuple(active.shape), generator=gen, device=dev)
-    r = torch.randn(tuple(active.shape), generator=gen, device=dev)
-    xp = st.pad_slab(x, mesh)
+    shape = tuple(system.code.shape)
+    x = torch.randn(shape, generator=gen, device=dev)
+    r = torch.randn(shape, generator=gen, device=dev)
+    xp = st.pad_slab(x, mesh, bool(system.periodic[0]))
     rp = st.pad_slab(r, ghosts=False)
     del x, r
     chk = Checker()
-    case = f"rank {mesh.rank} slab " + "x".join(map(str, xp.shape))
+    case = f"rank {mesh.rank} {label} slab " + "x".join(map(str, xp.shape))
     got, dot = sc.k1_stencil("matvec", xp, None, code, w, per, with_dot=True)
     want, wdot = st.apply_code_with_dot_plain(xp, code, w, per)
     chk.close("k1_matvec_dot_f32", got, want, torch.float32, case)
@@ -1823,21 +1879,47 @@ def _slab_kernel_checks(mesh, active):
     require(levels, f"rank {mesh.rank}: the cycle has no sharded coarse "
                     "level to hold K2 on")
     for lvl in levels:
-        check_k2(chk, lvl, gen, f"rank {mesh.rank} coarse slab "
+        check_k2(chk, lvl, gen, f"rank {mesh.rank} {label} coarse slab "
                  + "x".join(map(str, lvl.diag.shape)))
     out.update(max_err=chk.max_err,
                k2_shapes=[tuple(lvl.diag.shape) for lvl in levels])
     return out
 
 
+_DEFF_KEYS = ("deff", "iterations", "rel_res", "converged", "lanes",
+              "volume_fraction")
+
+
+def _rank_deff(mesh, reader):
+    """``effective_diffusivity`` of this rank's slab of the main volume
+    (the 512^3 homogenisation on slabs, lanes where the rank-aware gate
+    admits them), counted by ``_rank_tau``; and the gate's answer."""
+    from openimpala_tpu_torch import effective_diffusivity
+    from openimpala_tpu_torch.io import threshold_sharded
+    from openimpala_tpu_torch.solve.lanes import use_lanes
+
+    slab, shape = threshold_sharded(reader, 0.5, mesh)
+    admits = use_lanes(int(np.prod(shape)), 3, "cg", mesh=mesh)
+    torch.cuda.empty_cache()
+    timings = {}
+    _, out = _rank_tau(lambda: effective_diffusivity(
+        slab, 1, eps=1e-9, mesh=mesh, original_shape=shape,
+        device=mesh.device, timings=timings), mesh, _DEFF_KEYS)
+    out.update(admits=admits, step_s=timings)
+    return slab, out
+
+
 def _sharded_rank(mesh, raw_path, n, small):
     """One rank of the ``sharded`` phase (run by ``parallel.spawn``): the
     main volume's slab from the RAW file into ``tortuosity``, K1 and K2
-    against their plain forms on the slab layouts, then the smaller
-    volumes whole under the
-    mesh.  Returns host values only."""
+    against their plain forms on the slab layouts, the same slab into
+    ``effective_diffusivity`` and the kernels again on the slab of its
+    periodic cell problem, then the smaller volumes whole under the mesh.
+    Returns host values only."""
     from openimpala_tpu_torch import tortuosity
     from openimpala_tpu_torch.io import RawReader, threshold_sharded
+    from openimpala_tpu_torch.ops.stencil import (
+        make_cell_problem_system, make_tortuosity_system)
 
     dev = mesh.device
     out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
@@ -1856,8 +1938,15 @@ def _sharded_rank(mesh, raw_path, n, small):
     out["main"]["step_s"] = timings
     active = res.active
     del res
-    out["slab_kernels"] = _slab_kernel_checks(mesh, active)
+    out["slab_kernels"] = _slab_kernel_checks(mesh, make_tortuosity_system(
+        active, 0, -1.0, 1.0, dtype=torch.float32, mesh=mesh), "flow")
     del active
+    torch.cuda.empty_cache()
+    slab, out["deff"] = _rank_deff(mesh, RawReader(raw_path, n, n, n,
+                                                   "UINT8"))
+    out["cell_kernels"] = _slab_kernel_checks(mesh, make_cell_problem_system(
+        slab == 1, 0, dtype=torch.float32, mesh=mesh), "cell")
+    del slab
     torch.cuda.empty_cache()
     for name, vol in small.items():
         _, out[name] = _rank_tau(lambda: tortuosity(
@@ -1881,10 +1970,12 @@ def _require_sharded_tau(label, got, want_tau, want_vf, want_its):
     return rel
 
 
-def phase_sharded(chk, vol, n, iso):
+def phase_sharded(chk, vol, n, runs):
     """The X-slab decomposition on ``SHARDED_RANKS`` ranks (module
-    docstring, 4b).  ``iso``: ``main[iso]``'s run.  Returns the launches
-    of the 512^3 solve summed over the ranks."""
+    docstring, 4b).  ``runs``: the main paths' runs (``iso``'s tau and
+    ``deff``'s tensor are the references).  Returns the launches of the
+    512^3 solves summed over the ranks."""
+    iso = runs["iso"]
     import shutil
     import tempfile
     from pathlib import Path
@@ -1959,13 +2050,19 @@ def phase_sharded(chk, vol, n, iso):
                     f"sharded[main]: rank {rank}'s {key} {m[key]!r} differs "
                     f"from rank 0's {ranks[0]['main'][key]!r}")
         launches.update(m["counts"])
-        k = out["slab_kernels"]
-        log(f"sharded[slab kernels] rank {rank} K1 on {k['shape']} route "
-            f"{k['route']}, K2 on {k['k2_shapes']}: "
-            + json.dumps({name: f"{e:.2e}" for name, e in
-                          k["max_err"].items()}))
-        for name, e in k["max_err"].items():
-            chk.max_err[name] = max(chk.max_err.get(name, 0.0), e)
+        for key, what in (("slab_kernels", "flow-through"),
+                          ("cell_kernels", "periodic cell problem")):
+            k = out[key]
+            log(f"sharded[slab kernels] rank {rank} {what}: K1 on "
+                f"{k['shape']} route {k['route']}, K2 on {k['k2_shapes']}: "
+                + json.dumps({name: f"{e:.2e}" for name, e in
+                              k["max_err"].items()}))
+            for name, e in k["max_err"].items():
+                chk.max_err[name] = max(chk.max_err.get(name, 0.0), e)
+                chk.max_err[f"{name}.slab"] = max(
+                    chk.max_err.get(f"{name}.slab", 0.0), e)
+        launches.update(_require_sharded_deff(out, ranks[0]["deff"],
+                                              runs["deff"]))
     m = ranks[0]["main"]
     rel = _require_sharded_tau("main", m, iso["tau"], iso["active_vf"],
                                iso["iterations"])
@@ -1976,6 +2073,15 @@ def phase_sharded(chk, vol, n, iso):
         f"{iso['wall_s']:.3f}, peak_mem_GB per rank "
         + ", ".join(f"{o['main']['peak_mem_GB']:.2f}" for o in ranks)
         + f" against {iso.get('peak_mem_GB', float('nan')):.2f}")
+    d = ranks[0]["deff"]
+    log(f"sharded[deff] {n}^3 on {len(ranks)} ranks: D_xx={d['deff'][0][0]!r}"
+        f" against main[deff] {runs['deff']['value']!r}, iterations "
+        f"{d['iterations']} against {runs['deff']['per_direction']}, lanes="
+        f"{d['lanes']} (the rank-aware gate admits: {d['admits']}), wall_s "
+        f"{max(o['deff']['wall_s'] for o in ranks):.3f} against "
+        f"{runs['deff']['wall_s']:.3f}, peak_mem_GB per rank "
+        + ", ".join(f"{o['deff']['peak_mem_GB']:.2f}" for o in ranks)
+        + f" against {runs['deff'].get('peak_mem_GB', float('nan')):.2f}")
     for name in SHARDED_SMALL:
         got = ranks[0][name]
         for out in ranks:
@@ -1990,6 +2096,165 @@ def phase_sharded(chk, vol, n, iso):
             f"percolation={got['percolation_method']} wall_s="
             f"{max(o[name]['wall_s'] for o in ranks):.3f} comm "
             + json.dumps(got["comm"]))
+    return dict(launches)
+
+
+def _require_sharded_deff(out, first, single):
+    """One rank's ``sharded[deff]``: logged and held to ``main[deff]``
+    (``single``: its tensor within 1e-6 of its largest entry, iterations
+    within 2 per direction), to rank 0's bits (``first``), and to the
+    launches of its path.  Returns the rank's launches."""
+    d, rank = out["deff"], out["rank"]
+    log(f"sharded[deff] rank {rank}: deff={d['deff'].tolist()!r} "
+        f"iterations={d['iterations']} rel_res={d['rel_res']!r} "
+        f"lanes={d['lanes']} admits={d['admits']} "
+        f"wall_s={d['wall_s']:.3f} peak_mem_GB={d['peak_mem_GB']:.2f}")
+    log(f"sharded[deff] rank {rank} step_s " + json.dumps(
+        {k: round(v, 4) for k, v in d["step_s"].items()}))
+    log(f"sharded[deff] rank {rank} comm " + json.dumps(d["comm"])
+        + " launches " + json.dumps(d["counts"], sort_keys=True))
+    require(d["converged"] and max(d["rel_res"]) <= 1e-9,
+            f"sharded[deff] rank {rank}: converged={d['converged']} "
+            f"rel_res={d['rel_res']}")
+    for key in ("iterations", "rel_res", "lanes"):
+        require(d[key] == first[key], f"sharded[deff]: rank {rank}'s {key} "
+                                      f"{d[key]!r} differs from rank 0's")
+    require(np.array_equal(d["deff"], first["deff"]),
+            f"sharded[deff]: rank {rank}'s tensor differs from rank 0's")
+    require(d["admits"] and d["lanes"],
+            f"sharded[deff] rank {rank}: lanes={d['lanes']}, the "
+            f"rank-aware gate admits {d['admits']}")
+    scale = float(np.abs(single["deff"]).max())
+    err = float(np.abs(d["deff"] - single["deff"]).max())
+    require(err <= 1e-6 * scale,
+            f"sharded[deff]: the tensor differs from main[deff]'s by "
+            f"{err:.3e} (largest entry {scale:.3e})")
+    require(all(abs(a - b) <= 2 for a, b in zip(d["iterations"],
+                                                single["per_direction"])),
+            f"sharded[deff]: iterations {d['iterations']} against "
+            f"{single['per_direction']}")
+    missing = [k for k in SHARDED_KERNELS if not d["counts"].get(k)]
+    require(not missing, f"sharded[deff] rank {rank}: never launched "
+                         f"{missing}")
+    require(not d["plain"], f"sharded[deff] rank {rank}: plain versions ran "
+                            f"on CUDA tensors: {d['plain']}")
+    return d["counts"]
+
+
+# sharded[cli]: the port's CLI under ``python -m torch.distributed.run`` on
+# SHARDED_RANKS ranks (gloo on the one card), homogenisation of a
+# CLI_SHAPE volume of the blobs recipe written as an uncompressed
+# multi-page TIFF: Z = 254 does not divide by 4, so the Z-page split pads
+CLI_SHAPE = (256, 256, 254)
+CLI_TIMEOUT = 300.0
+
+
+def _stdout_by_rank(log_dir):
+    """Each rank's standard output from ``torch.distributed.run``'s
+    ``--log-dir`` (``.../<local rank>/stdout.log``)."""
+    from pathlib import Path
+
+    return {int(p.parent.name): p.read_text()
+            for p in Path(log_dir).rglob("stdout.log")}
+
+
+def _tensor_rows(text):
+    rows = [line.strip() for line in text.splitlines()
+            if line.strip().startswith("[") and line.strip().endswith("]")]
+    return np.array([[float(v) for v in r.strip("[]").split(",")]
+                     for r in rows])
+
+
+def phase_sharded_cli(tmp):
+    """The port's CLI on ``SHARDED_RANKS`` ranks (module docstring, 4b):
+    its return code, rank 0's printed tensor against a single-card
+    ``effective_diffusivity`` call here on the same thresholded volume,
+    no result from the other ranks, the ingest's all-to-all bytes, and
+    each rank's launches in the calculation (``OPENIMPALA_LAUNCH_COUNTS``):
+    every kernel of ``SHARDED_KERNELS``, no plain form on a CUDA tensor.
+    Returns the launches summed over the ranks."""
+    import os
+
+    from openimpala_tpu_torch import effective_diffusivity
+    from openimpala_tpu_torch.io.tiff_raw import write_tiff
+
+    X, Y, Z = CLI_SHAPE
+    vol = make_blobs(X, 0.4, SEED)[:, :Y, :Z]
+    t0 = time.perf_counter()
+    write_tiff(os.path.join(tmp, "cli.tif"),
+               ((vol[:, :, z].T * 255).astype(np.uint8) for z in range(Z)),
+               big=False)
+    inputs = os.path.join(tmp, "cli.inputs")
+    with open(inputs, "w") as f:
+        f.write(f"filename = cli.tif\ndata_path = {tmp}/\n"
+                f"results_path = {tmp}/results/\nphase_id = 1\n"
+                "calculation_method = homogenization\nhypre.eps = 1e-9\n"
+                "verbose = 1\n")
+    ref = effective_diffusivity(vol, 1, eps=1e-9, device="cuda")
+    log(f"sharded[cli] {X}x{Y}x{Z} TIFF written and the single-card "
+        f"reference solved in {time.perf_counter() - t0:.1f} s: "
+        f"D_xx={ref.deff[0, 0]!r} iterations={ref.iterations}")
+    log_dir = os.path.join(tmp, "logs")
+    counts_dir = os.path.join(tmp, "cli_counts")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(SHARDED_RANKS), "--log-dir", log_dir,
+           "--redirects", "3", "-m", "openimpala_tpu_torch.diffusion",
+           inputs]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OPENIMPALA_LAUNCH_COUNTS=counts_dir,
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=CLI_TIMEOUT, env=env)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"sharded[cli]: torch.distributed.run did not "
+                           f"end within {CLI_TIMEOUT:.0f} s") from None
+    wall = time.perf_counter() - t0
+    outs = _stdout_by_rank(log_dir)
+    for line in (proc.stdout + proc.stderr).strip().splitlines()[-8:]:
+        log(f"sharded[cli] launcher said: {line}")
+    require(proc.returncode == 0 and sorted(outs) == list(
+        range(SHARDED_RANKS)),
+        f"sharded[cli]: return code {proc.returncode}, ranks' output "
+        f"{sorted(outs)}; rank 0 said: {outs.get(0, '')[-2000:]}")
+    got = _tensor_rows(outs[0])
+    require(got.shape == (3, 3), f"sharded[cli]: rank 0 printed no tensor: "
+                                 f"{outs[0][-2000:]}")
+    quiet = {r: o for r, o in outs.items() if r and o.strip()}
+    require(not quiet, f"sharded[cli]: ranks {sorted(quiet)} printed: "
+                       f"{json.dumps(quiet)[:2000]}")
+    scale = float(np.abs(ref.deff).max())
+    err = float(np.abs(got - ref.deff).max())
+    ingest = [line.strip() for line in outs[0].splitlines()
+              if "Distributed ingest" in line]
+    log(f"sharded[cli] torch.distributed.run x{SHARDED_RANKS}: rc 0 in "
+        f"{wall:.1f} s; rank 0's tensor {got.tolist()!r}, max abs diff "
+        f"{err:.3e} from the single-card call; {ingest}; "
+        + "; ".join(line.strip() for line in outs[0].splitlines()
+                    if "Total run time" in line))
+    require(err <= 1e-6 * scale, f"sharded[cli]: the tensor differs from "
+                                 f"the single-card call by {err:.3e}")
+    require(ingest and "bytes of Z pages" in ingest[0],
+            f"sharded[cli]: no Z-page ingest reported: {ingest}")
+    launches = collections.Counter()
+    for rank in range(SHARDED_RANKS):
+        path = os.path.join(counts_dir, f"rank{rank}.json")
+        require(os.path.exists(path),
+                f"sharded[cli] rank {rank}: wrote no launch counts")
+        with open(path) as f:
+            got = json.load(f)
+        log(f"sharded[cli] rank {rank} launches "
+            + json.dumps(got["launches"], sort_keys=True))
+        missing = [k for k in SHARDED_KERNELS if not got["launches"].get(k)]
+        require(not missing, f"sharded[cli] rank {rank}: never launched "
+                             f"{missing}")
+        require(not got["plain_on_cuda"],
+                f"sharded[cli] rank {rank}: plain versions ran on CUDA "
+                f"tensors: {got['plain_on_cuda']}")
+        launches.update(got["launches"])
     return dict(launches)
 
 
@@ -2588,6 +2853,8 @@ def phase_times(chk, vol, seed, runs):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
+            # on the ranks' slabs, flow-through and periodic (sharded)
+            "slab_max_abs_err": chk.max_err.get(name + ".slab"),
             "timed_on": main_label, "shape": t["shape"],
             "ms_eager": t["ms_eager"], "paths": paths,
         }
@@ -2661,7 +2928,9 @@ def _main(args, t_start):
             runs = phase_main(vol, args.n, perc["mask_x"])
             del perc
             t0 = _phase_done("main", t0)
-            sharded = phase_sharded(chk, vol, args.n, runs["iso"])
+            sharded = collections.Counter(
+                phase_sharded(chk, vol, args.n, runs))
+            sharded.update(phase_sharded_cli(_RAW["dir"]))
             t0 = _phase_done("sharded", t0)
             phase_graph(SEED)
             t0 = _phase_done("graph", t0)

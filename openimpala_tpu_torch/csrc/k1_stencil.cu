@@ -415,6 +415,13 @@ __global__ void __launch_bounds__(STREAM_THREADS, R == 1 ? 1 : K1_MINB2)
       return reinterpret_cast<const T*>(ring_ptr + s * L::STRIDE);
     };
     auto release = [&](int s) {
+      // The warp's reads of stage s are generic-proxy loads; the next copy
+      // into it is an async-proxy write.  Without this fence the copy may
+      // land before a read is performed (reads delayed behind the r and
+      // code loads of the next plane): one warp's row of one plane then
+      // comes out wrong, once in a few hundred periodic launches while
+      // device memory is mapped or unmapped meanwhile.
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       __syncwarp();
       if (lane == 0) mbar_arrive(empty0 + 8u * s);
     };

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.halo import halo_exchange_x, pad_halo
+from ..parallel.halo import halo_exchange_x, pad_halo, pad_halo_slab
 
 
 def _plane(x, axis, index):
@@ -106,7 +106,8 @@ def _central_grad(chi_p, axis, inv_2d):
     return (chi_p[(..., *sl_hi)] - chi_p[(..., *sl_lo)]) * inv_2d
 
 
-def deff_integrand_sum(chi_x, chi_y, chi_z, active, dx=(1.0, 1.0, 1.0)):
+def deff_integrand_sum(chi_x, chi_y, chi_z, active, dx=(1.0, 1.0, 1.0),
+                       mesh=None):
     """Raw 3x3 sums of the homogenisation integrand over active cells:
 
         S_ab = sum_{active} (delta_ab - d(chi_b)/d(xi_a))
@@ -116,6 +117,10 @@ def deff_integrand_sum(chi_x, chi_y, chi_z, active, dx=(1.0, 1.0, 1.0)):
     (B, X, Y, Z) with ``active`` alike; returns a (3, 3) tensor, or
     (B, 3, 3), in the dtype of the chi fields.  Divide by the TOTAL number
     of domain cells (not active cells) for D_eff (``Diffusion.cpp:152-158``).
+    Under a ``mesh`` the fields are this rank's X slabs: the X gradient
+    reads the neighbouring ranks' planes across the seams (the wrap
+    between the last rank and rank 0), and the sums are summed over the
+    ranks, the same bits on every rank.
     """
     a = active.to(torch.bool)
     periodic = (True, True, True)
@@ -126,7 +131,8 @@ def deff_integrand_sum(chi_x, chi_y, chi_z, active, dx=(1.0, 1.0, 1.0)):
     n_active = torch.sum(a, dim=vol, dtype=chi_x.dtype)
     cols = []
     for chi in (chi_x, chi_y, chi_z):  # one padded field alive at a time
-        chi_p = pad_halo(chi, periodic)
+        chi_p = (pad_halo(chi, periodic) if mesh is None
+                 else pad_halo_slab(chi, periodic, mesh))
         cols.append([torch.sum(torch.where(
             a, -_central_grad(chi_p, axis_a, inv2[axis_a]), zero), dim=vol)
             for axis_a in range(3)])
@@ -135,4 +141,5 @@ def deff_integrand_sum(chi_x, chi_y, chi_z, active, dx=(1.0, 1.0, 1.0)):
         row = [cols[b][axis_a] + n_active if axis_a == b else cols[b][axis_a]
                for b in range(3)]
         rows.append(torch.stack(row, dim=-1))
-    return torch.stack(rows, dim=-2)
+    out = torch.stack(rows, dim=-2)
+    return out if mesh is None else mesh.allsum(out)

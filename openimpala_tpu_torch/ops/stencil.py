@@ -33,8 +33,10 @@ slab.  A stencil on a slab (``slab_stencil``) copies its input into that
 layout, fills the inner plane of each side from the neighbouring rank
 (the ghost plane; the outer one stays 0 and is read by no free cell), and
 runs K1 on the whole padded slab with X clamped: the ghosts carry the
-neighbours' values, K1 writes 0 on the ghost planes and adds nothing for
-them to the fused dot, and ``restrict`` pairs the planes (2k, 2k+1) of
+neighbours' values (on a periodic X, the cell problems', rank 0's lower
+ghost is the last rank's last plane: the wrap crosses the seam there, and
+K1 itself never wraps X), K1 writes 0 on the ghost planes and adds
+nothing for them to the fused dot, and ``restrict`` pairs the planes (2k, 2k+1) of
 the padded slab, which are the slab's own pairs whenever the slab's X is
 even; its coarse output comes padded by one plane of 0 on each side.
 """
@@ -521,11 +523,17 @@ def make_tortuosity_system(active, direction: Axis, vlo: float, vhi: float,
 
 
 def make_cell_problem_system(active, direction_k: Axis, dx=(1.0, 1.0, 1.0),
-                             dtype=torch.float64) -> StencilSystem:
+                             dtype=torch.float64,
+                             mesh=None) -> StencilSystem:
     """Build the periodic homogenisation cell problem for chi_k
     (``EffectiveDiffusivityHypre.cpp:213-399``).  ``active`` is (X, Y, Z),
     or a batch (B, X, Y, Z) of masks: then ``code`` and ``r0_b`` carry the
-    batch dimension and ``b_norm`` is (B,)."""
+    batch dimension and ``b_norm`` is (B,).  Under a ``mesh``, ``active``
+    is this rank's X slab of an (X, Y, Z) mask whose X the mesh divides
+    (a periodic cell problem cannot be padded): ``m_minus``/``m_plus``
+    read the X neighbours across the seams, rank 0's lower one from the
+    last rank (the wrap), ``b_norm`` sums over the ranks, and the code is
+    kept once more in K1's slab layout."""
     periodic = (True, True, True)
     w = _weights(dx)
     active = active.to(torch.bool)
@@ -540,7 +548,8 @@ def make_cell_problem_system(active, direction_k: Axis, dx=(1.0, 1.0, 1.0),
                        _minus_one_bf16(dev))
 
     m = active.to(dtype)
-    mp = pad_halo(m, periodic)
+    mp = pad_halo(m, periodic) if mesh is None else pad_halo_slab(
+        m, periodic, mesh)
     sl = [slice(1, -1)] * 3
     lo_sl, hi_sl = list(sl), list(sl)
     lo_sl[direction_k] = slice(0, -2)
@@ -555,10 +564,13 @@ def make_cell_problem_system(active, direction_k: Axis, dx=(1.0, 1.0, 1.0),
            - (1.0 - m_plus) * inv_d)
     rhs = torch.where(active, rhs, torch.zeros((), dtype=dtype, device=dev))
 
-    b_norm = torch.sqrt(torch.sum(rhs * rhs, dim=(-3, -2, -1)))
+    b2 = torch.sum(rhs * rhs, dim=(-3, -2, -1))
+    b_norm = torch.sqrt(b2 if mesh is None else mesh.allsum(b2))
     return StencilSystem(code=code,
                          x_forced=torch.zeros((), dtype=dtype, device=dev),
-                         r0_b=rhs, b_norm=b_norm, w=w, periodic=periodic)
+                         r0_b=rhs, b_norm=b_norm, w=w, periodic=periodic,
+                         mesh=mesh,
+                         code_halo=None if mesh is None else code_slab(code))
 
 
 def check_operator_properties(system: StencilSystem, active,

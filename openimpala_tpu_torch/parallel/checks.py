@@ -9,14 +9,21 @@ start-up is paid once.  This module imports only the port.
 
 from __future__ import annotations
 
+import contextlib
+import io
+import json
+import os
+
 import numpy as np
 import torch
 
 from ..io import RawReader, TiffReader, threshold_sharded
 from ..ops.floodfill import percolation_mask_sharded
+from ..ops.flux import deff_integrand_sum
 from ..ops.masks import pad_volume_to, upload_mask
 from ..ops.packfill import pack_x, percolation_oneshot_packed_sharded
-from ..ops.stencil import make_tortuosity_system
+from ..ops.stencil import make_cell_problem_system, make_tortuosity_system
+from ..props.effective_diffusivity import effective_diffusivity
 from ..props.tortuosity import tortuosity
 from ..solve.refine import make_precond
 from ..utils.common import any_true, count_true
@@ -133,3 +140,152 @@ def percolation(mesh, phase, direction, original_shape=None):
                                           mesh, original_shape=shape)
     t = torch.from_numpy(active)
     return packed, active, vf, (count_true(t, mesh), any_true(t, mesh))
+
+
+# ---------------------------------------------------------------------------
+# homogenisation on slabs: the periodic cell problems, their cycle and
+# tensor, ``effective_diffusivity`` under the mesh, the Z-page ingest and
+# the CLI
+# ---------------------------------------------------------------------------
+
+
+def cell_system(mesh, active, k, dx):
+    """The periodic cell problem of direction ``k`` on the slab: its
+    packed code, right-hand side and ``b_norm``."""
+    sys_ = make_cell_problem_system(_slab(mesh, active, torch.bool), k, dx,
+                                    dtype=torch.float64, mesh=mesh)
+    return (sys_.code.float().cpu().numpy(), sys_.r0_b.cpu().numpy(),
+            float(sys_.b_norm))
+
+
+def cell_vcycle(mesh, active, r, dx, opts):
+    """One application of the default cycle on the slab of the periodic
+    cell problem of X, and the level it gathers at."""
+    sys_ = make_cell_problem_system(_slab(mesh, active, torch.bool), 0, dx,
+                                    dtype=torch.float64, mesh=mesh)
+    M = make_precond(sys_, "gmg", opts)
+    return M(_slab(mesh, r, torch.float64)).cpu().numpy(), M.gather
+
+
+def deff_sum(mesh, active, chis, dx):
+    """``deff_integrand_sum`` of the slabs of three fields."""
+    slabs = [_slab(mesh, c, torch.float64) for c in chis]
+    return deff_integrand_sum(*slabs, _slab(mesh, active, torch.bool), dx,
+                              mesh=mesh).cpu().numpy()
+
+
+def deff(mesh, phase, kw):
+    """``effective_diffusivity`` of the whole volume ``phase`` (phase id 1)
+    under the mesh: its tensor, iterations, rel_res, converged, lanes and
+    volume fraction, the shape of this rank's chi_x, and what it wrote to
+    stderr."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        res = effective_diffusivity(phase, 1, device=mesh.device, mesh=mesh,
+                                    return_fields=True, **kw)
+    return {"deff": res.deff, "iterations": tuple(res.iterations),
+            "rel_res": tuple(res.rel_res), "converged": res.converged,
+            "lanes": res.lanes, "volume_fraction": res.volume_fraction,
+            "chi_shape": tuple(res.chi[0].shape), "stderr": err.getvalue()}
+
+
+def deff_slab(mesh, phase, kw):
+    """``effective_diffusivity`` of this rank's slab of ``phase`` with the
+    original shape, passed as a numpy array and as a tensor: the tensor,
+    iterations and volume fraction of each."""
+    slab = shard_volume(phase, mesh)
+    out = []
+    for arg in (slab, torch.from_numpy(np.ascontiguousarray(slab))):
+        res = effective_diffusivity(arg, 1, device=mesh.device, mesh=mesh,
+                                    original_shape=phase.shape, **kw)
+        out.append({"deff": res.deff, "iterations": tuple(res.iterations),
+                    "volume_fraction": res.volume_fraction})
+    return out
+
+
+def deff_padded_slab(mesh, phase):
+    """``effective_diffusivity`` of a slab whose original X the mesh does
+    not divide: the ``ValueError`` message this rank raised."""
+    slab = _slab(mesh, pad_volume_to(phase, mesh.size, -1))
+    try:
+        effective_diffusivity(slab, 1, device=mesh.device, mesh=mesh,
+                              original_shape=phase.shape)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def zpart(mesh, path, chunk):
+    """``threshold_sharded`` of a TIFF stack at 127 with the Z-page split
+    and without it: both slabs, and the split's all-to-all statistics."""
+    from .mesh import reset_stats, stats
+
+    reader = TiffReader(path)
+    reset_stats()
+    split, shape = threshold_sharded(reader, 127.0, mesh, chunk=chunk,
+                                     z_partition=True)
+    comm = dict(stats)
+    whole, _ = threshold_sharded(reader, 127.0, mesh, chunk=chunk,
+                                 z_partition=False)
+    default, _ = threshold_sharded(reader, 127.0, mesh, chunk=chunk)
+    return (split.cpu().numpy(), whole.cpu().numpy(),
+            default.cpu().numpy(), shape, comm)
+
+
+def cli(mesh, inputs, results_root, min_cells=None):
+    """The port's CLI (``diffusion.main``) on this rank with ``device =
+    cpu``, a results path of the rank's own and ``OPENIMPALA_LAUNCH_COUNTS``
+    set: its return code, what it printed, the ``results.txt`` it wrote
+    (None where it wrote none) and its launch counts file.
+    ``min_cells``: ``mesh.AUTO_SHARD_MIN_CELLS`` for the call (None: as
+    it is)."""
+    from unittest import mock
+
+    from .. import diffusion
+    from . import mesh as pm
+
+    res = os.path.join(results_root, f"rank{mesh.rank}")
+    counts = os.path.join(results_root, "counts")
+    out = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(contextlib.redirect_stdout(out))
+        stack.enter_context(mock.patch.dict(
+            os.environ, {"OPENIMPALA_LAUNCH_COUNTS": counts}))
+        if min_cells is not None:
+            stack.enter_context(mock.patch.object(
+                pm, "AUTO_SHARD_MIN_CELLS", min_cells))
+        rc = diffusion.main([inputs, "device=cpu", f"results_path={res}/"])
+    txt = os.path.join(res, "results.txt")
+    with open(os.path.join(counts, f"rank{mesh.rank}.json")) as f:
+        launched = json.load(f)
+    return (rc, out.getvalue(),
+            open(txt).read() if os.path.exists(txt) else None, launched)
+
+
+def lanes_gate(mesh, cells):
+    """The ranks sharing this rank's device, and ``use_lanes`` under the
+    mesh for each global cell count of ``cells``."""
+    from ..solve.lanes import use_lanes
+
+    return (mesh.ranks_on_device(),
+            [use_lanes(c, 3, "cg", mesh=mesh) for c in cells])
+
+
+def vf_counts(mesh, path, shape, inputs):
+    """``volume_fraction_counts`` of this rank's slab of a RAW file (uint8,
+    thresholded at 127, X padded by the ingest) summed over the ranks, and
+    ``diffusion.load_phase_sharded``'s answer for an inputs file (None, or
+    the slab's shape and the original shape)."""
+    from .. import diffusion
+    from ..config import DiffusionConfig, ParmParse
+    from ..props.volume_fraction import volume_fraction_counts
+
+    slab, _ = threshold_sharded(RawReader(path, *shape, "UINT8"), 127.0,
+                                mesh)
+    counts = volume_fraction_counts(slab, 1, mesh=mesh)
+    cfg = DiffusionConfig.from_parmparse(ParmParse.from_file(
+        inputs, overrides=["device=cpu"]))
+    loaded = [diffusion.load_phase_sharded(cfg, allow_pad=pad, mesh=mesh)
+              for pad in (False, True)]
+    return counts, [None if got is None else (tuple(got[0].shape), got[1])
+                    for got in loaded]

@@ -20,8 +20,8 @@ device.  Its collectives take and return tensors on that device:
 
 Sums over ranks (``allsum``) gather the partial values and add them in
 rank order in float64, so every rank holds the same bits and takes the
-same branch.  ``stats`` counts every exchange, gather and sum with its
-bytes.
+same branch.  ``stats`` counts every exchange, gather, sum and
+all-to-all with its bytes.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import collections
 import dataclasses
 import logging
 import os
+import socket
 import zlib
 
 import numpy as np
@@ -44,7 +45,8 @@ AXIS = "x"  # name of the decomposed axis (the JAX package's mesh axis)
 AUTO_SHARD_MIN_CELLS = 96 ** 3
 
 # since reset_stats(): halo exchanges and the bytes each rank sent for
-# them, gathers and their bytes received, sums over ranks
+# them, gathers and their bytes received, sums over ranks, all-to-alls
+# and the bytes each rank sent to the others
 stats: collections.Counter = collections.Counter()
 
 _log = logging.getLogger(__name__)
@@ -164,6 +166,37 @@ class Mesh:
                     else self._in(ghi, last.dtype))
         return ghost_lo, ghost_hi
 
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` holds ``size`` equal blocks along dim 0, block j for rank
+        j; returns the blocks that the ranks sent this one, in rank order
+        (one ``all_to_all_single``), on ``t``'s device.  Under gloo a CUDA
+        tensor goes through pinned host buffers and a host tensor stays on
+        the host; under nccl a host tensor goes through this rank's card."""
+        if t.shape[0] % self.size:
+            raise ValueError(f"all_to_all: {t.shape[0]} rows do not split "
+                             f"into {self.size} equal blocks")
+        home = t.device
+        if self.backend == "nccl":
+            t = t.to(self.device)
+        wire = self._out(t) if t.device.type == "cuda" else (
+            t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous())
+        out = torch.empty_like(wire)
+        dist.all_to_all_single(out, wire, group=self.group)
+        stats["all_to_alls"] += 1
+        stats["all_to_all_bytes"] += (wire.numel() * wire.element_size()
+                                      * (self.size - 1) // self.size)
+        return out.to(home).to(t.dtype)
+
+    def ranks_on_device(self) -> int:
+        """How many ranks of the mesh, this one included, run on this
+        rank's device (the same card of the same host, or the same host's
+        CPU): they share its memory.  One gather."""
+        host = zlib.crc32(socket.gethostname().encode())
+        index = self.device.index if self.device.type == "cuda" else -1
+        mine = torch.tensor([host, index], dtype=torch.int64)
+        parts = self.all_gather(mine.to(self.device)).cpu()
+        return int((parts == mine).all(dim=1).sum())
+
     def barrier(self):
         dist.barrier(group=self.group)
 
@@ -212,12 +245,13 @@ def make_mesh(group=None, device=None) -> Mesh:
     return mesh
 
 
-def resolve_mesh(mesh, shape, min_cells: int = AUTO_SHARD_MIN_CELLS,
+def resolve_mesh(mesh, shape, min_cells: int | None = None,
                  device=None) -> Mesh | None:
     """A driver's ``mesh`` argument: None (one rank), a ``Mesh`` (used as
     given; one of size 1 is None), or ``"auto"``: this process group's
     mesh when one is initialised with more than one rank and the volume
-    has at least ``min_cells`` cells, else None.  ``device``: the mesh's
+    has at least ``min_cells`` cells (None: ``AUTO_SHARD_MIN_CELLS`` as it
+    is at the call), else None.  ``device``: the mesh's
     device under "auto" (``make_mesh``'s rule when None)."""
     if mesh is None:
         return None
@@ -228,7 +262,8 @@ def resolve_mesh(mesh, shape, min_cells: int = AUTO_SHARD_MIN_CELLS,
             return None
         if dist.get_world_size() <= 1:
             return None
-        if int(np.prod(shape)) < min_cells:
+        if int(np.prod(shape)) < (AUTO_SHARD_MIN_CELLS if min_cells is None
+                                  else min_cells):
             return None
         return make_mesh(device=device)
     raise ValueError(f"mesh must be None, 'auto', or a Mesh; got {mesh!r}")

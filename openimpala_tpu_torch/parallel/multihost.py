@@ -12,7 +12,8 @@ where the other ranks are, so there is no second mechanism.
 * **Start-up**: ``initialize`` joins the process group; ``torchrun``'s
   environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``)
   or an explicit ``init_method`` (``tcp://host:port``,
-  ``file:///shared/path``) and rank tell it where the others are.
+  ``file:///shared/path``) and rank tell it where the others are.  The
+  CLI joins through ``initialize_from_env``, which picks the backend.
 * **Ingest**: each rank reads and thresholds only its own X slab
   (``io.ingest.threshold_sharded``, ``local_x_ranges``).
 * **Results**: the drivers return the same scalars on every rank (sums
@@ -23,7 +24,9 @@ where the other ranks are, so there is no second mechanism.
 from __future__ import annotations
 
 import datetime
+import os
 
+import torch
 import torch.distributed as dist
 
 from .mesh import Mesh, make_mesh, slab_range
@@ -49,6 +52,28 @@ def initialize(backend: str, init_method: str | None = None,
     if rank is not None:
         kwargs["rank"] = int(rank)
     dist.init_process_group(**kwargs)
+
+
+def initialize_from_env(device) -> bool:
+    """Join the process group that ``torchrun`` (``python -m
+    torch.distributed.run``) describes in the environment, for the CLI.
+    The backend is a rule, not a setting: ``nccl`` where ``device`` is
+    CUDA and every local rank has a card of its own (``LOCAL_WORLD_SIZE``
+    at most the cards), ``gloo`` otherwise (several ranks on one card, or
+    the CPU).  Returns True where this call made the group (the caller
+    then ends it), False where a group already existed or the
+    environment names one rank or none."""
+    if dist.is_initialized():
+        return False
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    local = int(os.environ.get("LOCAL_WORLD_SIZE",
+                               os.environ["WORLD_SIZE"]))
+    own_card = (torch.device(device).type == "cuda"
+                and torch.cuda.is_available()
+                and local <= torch.cuda.device_count())
+    initialize("nccl" if own_card else "gloo")
+    return True
 
 
 def is_coordinator() -> bool:

@@ -160,7 +160,9 @@ def rev_study(
     None means CUDA, ``"cpu"`` the CPU.  ``plotfile_dir``: write each
     sample's chi fields there as HDF5 + XDMF (``rev_chi_s<n>_sz<size>``,
     ``Diffusion.cpp:442-447``; needs h5py); the crops then run on the
-    sequential solver, which returns the fields.
+    sequential solver, which returns the fields.  Every crop is solved on
+    one device (``mesh=None`` unless ``solve_kwargs`` names one), also
+    under a process group.
     """
     phase = np.asarray(phase)
     if rng is None:
@@ -199,10 +201,13 @@ def rev_study(
         for i in idxs:
             s_no, size, lo, _ = boxes[i]
             crop = _crop(phase, lo, actual)
+            # one device per crop, also under a process group: ranks that
+            # call this may differ in plotfile_dir, so in path and fields
             res = effective_diffusivity(
                 crop, phase_id, eps=eps, maxiter=maxiter, method=method,
                 precond=precond, verbose=max(0, verbose - 1),
-                return_fields=plotfile_dir is not None, **solve_kwargs,
+                return_fields=plotfile_dir is not None,
+                **{"mesh": None, **solve_kwargs},
             )
             d = res.deff if res.converged else np.full((3, 3), math.nan)
             results[i] = (np.asarray(d), res.converged)

@@ -20,7 +20,15 @@ as lanes of one solve:
 * on CUDA the iterations of every round of a solve replay one CUDA
   graph (``utils/graphs.py``), as the mono loop's do.
 
-Memory gate (``use_lanes``): lane state is L times the mono solve's.
+On X slabs (systems built with a ``mesh``) every lane's dot products and
+norms are summed over the ranks (``Mesh.allsum``, the same bits on every
+rank, so every rank reads the same probe and takes the same branch), each
+lane's preconditioner is the slab cycle (``solve/slab_mg.py``), and the
+iterations run eagerly, one per host read, as the mono loop's do there.
+
+Memory gate (``use_lanes``): lane state is L times the mono solve's; on
+slabs each rank holds its share, on a device it may share with other
+ranks.
 """
 
 from __future__ import annotations
@@ -39,8 +47,11 @@ from .cg import SolveResult, _probe
 _VOL = (1, 2, 3)  # the volume axes of an (L, X, Y, Z) stack
 
 
-def _lane_dot(a, b):
-    return torch.sum(a * b, dim=_VOL)
+def _lane_dot(a, b, mesh=None):
+    """Per-lane <a_i, b_i>; under a ``mesh``, summed over the ranks'
+    slabs."""
+    d = torch.sum(a * b, dim=_VOL)
+    return d if mesh is None else mesh.allsum(d)
 
 
 def _bcast(v, ndim: int):
@@ -59,16 +70,21 @@ class LaneSystem:
     b_norm: torch.Tensor  # (L,)
     w: tuple
     periodic: tuple
+    # X slabs: the rank's Mesh and the code in K1's slab layout
+    mesh: object = None
+    code_halo: torch.Tensor = None
 
     @classmethod
     def from_systems(cls, systems):
         """Stack same-operator systems (the operator identity, equal code,
-        w, periodic and x_forced, is the caller's contract)."""
+        w, periodic and x_forced, is the caller's contract); slab systems
+        give a lane system on the same slabs."""
         base = systems[0]
         return cls(code=base.code, x_forced=base.x_forced,
                    r0_b=torch.stack([s.r0_b for s in systems]),
                    b_norm=torch.stack([s.b_norm for s in systems]),
-                   w=base.w, periodic=base.periodic)
+                   w=base.w, periodic=base.periodic, mesh=base.mesh,
+                   code_halo=base.code_halo)
 
     @property
     def lanes(self) -> int:
@@ -79,7 +95,8 @@ class LaneSystem:
         the shared-operator apply."""
         return StencilSystem(code=self.code, x_forced=self.x_forced,
                              r0_b=self.r0_b[0], b_norm=self.b_norm[0],
-                             w=self.w, periodic=self.periodic)
+                             w=self.w, periodic=self.periodic,
+                             mesh=self.mesh, code_halo=self.code_halo)
 
     def apply_with_dot(self, x):
         """``(A x_i, <x_i, A x_i>)`` for every lane: L calls of the base
@@ -120,7 +137,7 @@ def _lanes_step(lsys, precond, state, denom, eps):
     ndim = r.dim()
     y = r if precond is None else torch.stack(
         [precond(r[i]) for i in range(L)])
-    rz = _lane_dot(r, y)
+    rz = _lane_dot(r, y, lsys.mesh)
     beta = torch.where((rz_prev > 0) & ~done,
                        rz / torch.where(rz_prev > 0, rz_prev, 1.0), 0.0)
     torch.add(y, _bcast(beta, ndim) * p, out=p)
@@ -129,7 +146,7 @@ def _lanes_step(lsys, precond, state, denom, eps):
     alpha = torch.where(ok, rz / torch.where(pap > 0, pap, 1.0), 0.0)
     torch.add(z, _bcast(alpha, ndim) * p, out=z)
     torch.sub(r, _bcast(alpha, ndim) * ap, out=r)
-    rel2 = torch.sqrt(_lane_dot(r, r)) / denom
+    rel2 = torch.sqrt(_lane_dot(r, r, lsys.mesh)) / denom
     done2 = done | (rel2 <= eps) | (pap <= 0)
     rz_prev.copy_(rz)
     it.copy_(torch.where(done, it, it + 1))
@@ -157,15 +174,19 @@ def cg_lanes(lsys: LaneSystem, r0, denom, eps, maxiter: int, precond,
     _cg_chunked_loop``."""
     L = r0.shape[0]
     dev = r0.device
+    mesh = lsys.mesh
+    if mesh is not None:
+        chunk = 1  # the sums already pass through the host (cg.py's rule)
     denom = torch.as_tensor(denom, dtype=r0.dtype).to(dev)
-    denom = torch.where(denom > 0, denom, torch.sqrt(_lane_dot(r0, r0)))
+    norm0 = torch.sqrt(_lane_dot(r0, r0, mesh))
+    denom = torch.where(denom > 0, denom, norm0)
     denom = torch.where(denom > 0, denom, 1.0)
-    rel0 = torch.sqrt(_lane_dot(r0, r0)) / denom
+    rel0 = norm0 / denom
     state = (torch.zeros_like(r0), r0.clone(), torch.zeros_like(r0),
              torch.zeros((L,), dtype=r0.dtype, device=dev),
              torch.zeros((L,), dtype=torch.int32, device=dev), rel0,
              rel0 <= eps)
-    with graphs.solve_graph(dev, _graph) as holder:
+    with graphs.solve_graph(dev, _graph, mesh) as holder:
         if holder:
             holder.load(("lanes", id(lsys), id(precond)),
                         lambda *a: _lanes_step(lsys, precond, a[:7], a[7],
@@ -210,15 +231,17 @@ def _outer_residual_lanes(lsys, x_outer, outer_dtype):
     """Per-lane ``free * (b - A x)`` with the system cast to
     ``outer_dtype``, and the per-lane norms."""
     rs = lsys.astype(outer_dtype).initial_residual(x_outer)
-    return rs, torch.sqrt(_lane_dot(rs, rs))
+    return rs, torch.sqrt(_lane_dot(rs, rs, lsys.mesh))
 
 
 def _round0_estimate_lanes(lsys, z_total):
     """Round-0 residuals in the Krylov (storage) dtype and their float64
     norms (refine.py: summed in float32)."""
     r_hi = lsys.initial_residual(z_total.to(lsys.r0_b.dtype))
-    scale = torch.sqrt(torch.sum(r_hi.to(torch.float32) ** 2, dim=_VOL)
-                       .to(torch.float64))
+    s = torch.sum(r_hi.to(torch.float32) ** 2, dim=_VOL)
+    if lsys.mesh is not None:
+        s = lsys.mesh.allsum(s)
+    scale = torch.sqrt(s.to(torch.float64))
     return r_hi, scale
 
 
@@ -253,7 +276,7 @@ def solve_system_lanes(lsys: LaneSystem, eps: float, maxiter: int,
     applied per lane.  Returns ``(x_full (L, ...), info)`` with per-lane
     (L,) iterations, rel_res and converged.  ``_graph``: as in
     ``solve/refine.py::solve_system``."""
-    with graphs.solve_graph(lsys.code.device, _graph) as graph:
+    with graphs.solve_graph(lsys.code.device, _graph, lsys.mesh) as graph:
         return _solve_lanes(lsys, eps, maxiter, precond, inner_dtype,
                             inner_eps, max_refine_rounds, inner_round_cap,
                             outer_dtype, precond_opts, verbose, history,
@@ -375,15 +398,28 @@ def lanes_bytes_per_cell(lanes: int, inner_bytes: int = 4,
 
 def use_lanes(cells: int, lanes: int, method: str = "cg",
               inner_bytes: int = 4, outer_bytes: int = 8,
-              device="cpu") -> bool:
+              device="cpu", mesh=None) -> bool:
     """Memory gate for the lockstep path: lanes engage where the model
     (``lanes_bytes_per_cell``) fits in 85 % of the device's memory
     (``utils.common.device_hbm_limit``), or of ``FALLBACK_LIMIT`` where
-    the device reports none (the CPU)."""
+    the device reports none (the CPU).
+
+    Under a ``mesh`` (``cells`` the global count) each rank holds
+    ``cells / mesh.size`` of the volume, and its share of the device is
+    the device's memory over the ranks that run on it (the JAX package's
+    ``n_devices``, corrected for ranks that share a card: each of them
+    sees the whole card in ``torch.cuda.mem_get_info``).  Every rank must
+    call this; the answer is the same on every rank (lanes only where
+    every rank's share holds them)."""
     if method not in ("cg", "pcg"):
         return False
+    device = device if mesh is None else mesh.device
     limit = device_hbm_limit(device)
     if limit <= 0:
         limit = FALLBACK_LIMIT
     need = cells * lanes_bytes_per_cell(lanes, inner_bytes, outer_bytes)
-    return need < 0.85 * limit
+    if mesh is None:
+        return need < 0.85 * limit
+    fits = need / mesh.size < 0.85 * limit / mesh.ranks_on_device()
+    refused = mesh.allsum(torch.tensor(int(not fits), device=mesh.device))
+    return int(refused) == 0

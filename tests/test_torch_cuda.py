@@ -970,3 +970,41 @@ def test_k1_on_the_slab_layout_matches_plain(cuda, shape, dx):
         xp[2:-2].contiguous(), rp[2:-2].contiguous(), s.code, s.w,
         s.periodic)
     torch.testing.assert_close(out[1:-1], want, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("mode", ["sweep", "resid"])
+def test_k1_stream_periodic_repeats_under_allocation_churn(cuda, mode):
+    """K1's stream route on a 512^3 periodic cell problem gives the same
+    bits launch after launch while another thread maps and unmaps device
+    memory: without the proxy fence in the ring's release, about one
+    launch in a hundred had one warp's row of one plane wrong."""
+    import threading
+
+    s = _system("cell", (512, 512, 512), (1.0, 1.0, 1.0), torch.float32,
+                cuda)
+    assert sc.k1_route(tuple(s.code.shape), torch.float32,
+                       s.periodic) == "stream"
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(tuple(s.code.shape), generator=gen, device=cuda)
+    r = torch.randn(tuple(s.code.shape), generator=gen, device=cuda)
+
+    def k1():
+        return sc.k1_stencil(mode, x, r, s.code, s.w, s.periodic)
+
+    ref = k1().clone()
+    stop = threading.Event()
+
+    def churn():
+        while not stop.is_set():
+            a = torch.empty(1 << 28, device=cuda)
+            del a
+            torch.cuda.empty_cache()
+
+    thread = threading.Thread(target=churn)
+    thread.start()
+    try:
+        bad = sum(not torch.equal(k1(), ref) for _ in range(400))
+    finally:
+        stop.set()
+        thread.join()
+    assert bad == 0
