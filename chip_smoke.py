@@ -157,7 +157,27 @@ Phases (each failure exits non-zero and prints no result line):
                output from the other ranks, the ingest's all-to-all bytes
                logged, and each rank's launches in the calculation
                (``OPENIMPALA_LAUNCH_COUNTS``) held as ``sharded[deff]``'s
-               are: K1 and K2 launched, no plain version on a CUDA tensor;
+               are: K1 and K2 launched, no plain version on a CUDA tensor.
+               Every preconditioner and Krylov method on the slabs, in
+               the same world (``SHARDED_SOLVERS``): ``sharded[sa]`` and
+               ``sharded[fgmres]`` (FGMRES with the default cycle) on the
+               main volume's slabs from the RAW file, against ``main[sa]``
+               and ``main[cli]``; ``sharded[mg]``, ``sharded[cheby]`` and
+               ``sharded[deff-sa]`` (the periodic SA cell problems) on a
+               ``SOLVER_N``^3 volume against single-card calls here: tau
+               within 1e-6 (the tensor within 1e-6 of its largest entry),
+               iterations or Arnoldi steps within 2, the same bits on
+               every rank, each run's kernels on every rank (K3 at every
+               sharded SA level's padded extent, K5 on the slab padded by
+               one plane 7 times per iteration and no K4, K1 at every
+               sharded ``mg`` level's extent in its slab layout and on the
+               gathered levels), no plain version on a CUDA tensor; each
+               logs its wall, peak and traffic per rank.  K3 (every mode,
+               the prefix apply, and the slab forms) is held against its
+               plain form on the R-padded slabs of the SA hierarchy built
+               on the 512^3 flow slabs and on the periodic ``SOLVER_N``^3
+               cell slabs (the build timed, its exchanges logged), and K5
+               on the one-plane-padded slabs;
 4c. graph    - at 128^3, ``tortuosity`` (default and ``sa``), the lanes of
                ``effective_diffusivity`` and ``rev_study`` (16 crops of
                64^3), graphed against the eager twin: results, iterations
@@ -1044,7 +1064,7 @@ def _log_counts(label, counts, at, plain, routes=None):
             {f"{k} {route} {'x'.join(map(str, shp))}": v
              for (k, route, shp), v in sorted(routes.items())}))
     if at:
-        log(f"main[{label}] k3_launches_by_extent " + json.dumps(
+        log(f"main[{label}] k3_k5_launches_by_extent " + json.dumps(
             {f"{k} {'x'.join(map(str, shp))}": v
              for (k, shp), v in sorted(at.items())}))
     log(f"main[{label}] plain_on_cuda " + json.dumps(plain, sort_keys=True))
@@ -1163,7 +1183,7 @@ def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None):
     if host_mask is not None:
         require(torch.equal(res.active, host_mask),
                 f"main[{label}]: the mask differs from the host's")
-    at = dict(sc.launches_at)  # (name, extent) -> K3 launches
+    at = dict(sc.launches_at)  # (name, extent) -> K3 and K5 launches
     routes = _k1_routes()
     log(f"main[{label}] {n}^3 dx={dx} precond={precond} opts={opts}: "
         f"tau={res.value!r} "
@@ -1787,7 +1807,7 @@ def phase_main(vol, n, host_mask):
 
 
 SHARDED_RANKS = 4
-SHARDED_TIMEOUT = 300.0  # seconds for the whole world, start-up included
+SHARDED_TIMEOUT = 900.0  # seconds for the whole world, start-up included
 # the two smaller volumes of the sharded phase: slabs of 25 planes (odd),
 # and an X extent that the ranks do not divide (254 -> 256)
 SHARDED_SMALL = {"odd100": (100, 100), "padded": (256, 254)}
@@ -1821,9 +1841,13 @@ def _rank_tau(call, mesh, keys=_TAU_KEYS):
     wall = time.perf_counter() - t0
     out = {k: getattr(res, k) for k in keys}
     peak = torch.cuda.max_memory_allocated(mesh.device)
+    k1_at = collections.Counter()  # K1's launches by extent, every route
+    for (name, _, shape), v in sc.launches_route_at.items():
+        k1_at[shape] += v
     out.update(wall_s=wall, counts=dict(sc.launches),
                plain=dict(sc.plain_on_cuda), comm=dict(pm.stats),
-               peak_mem_GB=peak / 1e9)
+               peak_mem_GB=peak / 1e9, at=dict(sc.launches_at),
+               k1_at=dict(k1_at))
     return res, out
 
 
@@ -1886,6 +1910,155 @@ def _slab_kernel_checks(mesh, system, label):
     return out
 
 
+def _slab_k3_k5_checks(mesh, system, label):
+    """K3 and K5 against their plain forms on this rank's padded slab of
+    ``system`` (float32; clamped, or periodic with the wrap across the seam
+    between the last rank and rank 0): K3, every mode and the prefix
+    apply, on each sharded level of the smoothed-aggregation hierarchy
+    that ``make_precond`` builds on the slab (the build timed, its
+    exchanges, gathers and maxima counted), the level's coefficients in
+    the slab layout and ``x`` padded by R = 2 planes from the neighbours
+    (``SlabOffsetLevel.padded``, ``halo_exchange_x``); K5 on the slab
+    padded by one plane, as ``ChebyshevPreconditioner`` applies it.  The
+    slab forms (what the cycles call) must keep the slab's planes of the
+    same outputs.  Returns the errors, the build's record and the extents
+    each sharded level launches K3 at."""
+    from openimpala_tpu_torch.ops import offset as po
+    from openimpala_tpu_torch.ops import offset_cuda as oc
+    from openimpala_tpu_torch.ops import stencil as st
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+    from openimpala_tpu_torch.parallel import mesh as pm
+    from openimpala_tpu_torch.parallel.halo import halo_exchange_x, pad_x
+    from openimpala_tpu_torch.solve.preconditioners import (
+        ChebyshevPreconditioner)
+    from openimpala_tpu_torch.solve.refine import make_precond
+    from openimpala_tpu_torch.solve.slab_sa import SlabOffsetLevel
+
+    dev = mesh.device
+    pm.reset_stats()
+    mesh.barrier()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    M = make_precond(system, "sa")
+    torch.cuda.synchronize(dev)
+    build = {"s": time.perf_counter() - t0, "comm": dict(pm.stats),
+             "gather": M.gather,
+             "taps": [len(l.offsets) for l in M.levels
+                      if isinstance(l, SlabOffsetLevel)]
+             + [len(l.offsets) for l in M.glob.levels if l is not None]}
+    chk = Checker()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20 + mesh.rank)
+    levels = [l for l in M.levels if isinstance(l, SlabOffsetLevel)]
+    require(levels, f"rank {mesh.rank} {label}: the SA cycle has no "
+                    "sharded level to hold K3 on")
+    extents = []
+    for li, lvl in enumerate(levels):
+        shape, R, pk, offs = tuple(lvl.diag.shape), lvl.width, lvl.padded, \
+            lvl.offsets
+        x = torch.randn(shape, generator=gen, device=dev)
+        r = torch.randn(shape, generator=gen, device=dev)
+        xp = halo_exchange_x(x, lvl.periodic_x, mesh, R)
+        rp = pad_x(r, R)
+        case = (f"rank {mesh.rank} {label} SA level {li + 1} slab "
+                + "x".join(map(str, xp.shape)) + f" R={R} {len(offs)} taps")
+        # the absolute tolerance in units of the level's largest diagonal
+        # (as K2's): the Galerkin coefficients grow about 2x a level, and
+        # an output that cancels keeps the rounding of its largest terms
+        scale = max(1.0, float(lvl.diag.abs().max()))
+        plain = {"apply": po.offset_apply_plain(xp, pk, offs),
+                 "resid": po.offset_resid_plain(xp, rp, pk, offs),
+                 "sweep": po.offset_sweep_plain(xp, rp, pk, offs, 0.9)}
+        for mode, want in plain.items():
+            got = oc.k3_offset(mode, xp, None if mode == "apply" else rp,
+                               pk, offs, omega=0.9)
+            chk.close(f"k3_{mode}_f32", got, want, torch.float32, case,
+                      tol=K3_TOL, scale=scale)
+        if lvl.nn < len(offs):
+            chk.close("k3_apply_prefix_f32",
+                      oc.k3_offset("apply", xp, None, pk, offs,
+                                   n_taps=lvl.nn),
+                      po.offset_apply_plain(xp, pk, offs, n_taps=lvl.nn),
+                      torch.float32, case, tol=K3_TOL, scale=scale)
+        for mode, got in (("apply", lvl.apply(x)), ("resid", lvl.resid(x, r)),
+                          ("sweep", lvl.sweep(x, r, 0.9))):
+            chk.close(f"k3_{mode}_f32", got, plain[mode][R:-R],
+                      torch.float32, case + " slab form", tol=K3_TOL,
+                      scale=scale)
+        extents.append(tuple(xp.shape))
+        del x, r, xp, rp, plain
+    del M, levels
+    cheb = ChebyshevPreconditioner.from_system(system)
+    x = torch.randn(tuple(system.code.shape), generator=gen, device=dev)
+    xp = halo_exchange_x(x, bool(system.periodic[0]), mesh)
+    per = st.slab_periodic(system.periodic)
+    case = f"rank {mesh.rank} {label} slab " + "x".join(map(str, xp.shape))
+    want = st.apply_restricted_plain(xp, cheb.diag_halo, cheb.free_halo,
+                                     system.w, per)
+    chk.close("k5_matvec_f32", sc.k5_matvec_stream(
+        xp, cheb.diag_halo, cheb.free_halo, system.w, per), want,
+        torch.float32, case)
+    chk.close("k5_matvec_f32", cheb._apply_A(x), want[1:-1], torch.float32,
+              case + " slab form")
+    return {"max_err": chk.max_err, "build": build, "k3_extents": extents,
+            "k5_extent": tuple(xp.shape)}
+
+
+# every preconditioner and Krylov method on the slabs (module docstring,
+# 4b): label -> (the volume: "raw", the main volume's slabs read from the
+# RAW file, or SOLVER_N, a blobs volume of that edge passed whole; the
+# entry point; its keyword arguments; the kernels every rank must launch).
+# mg and cheby run hundreds of iterations (PR 6's rule put main[cheby] on
+# one card at 256^3 for that), and four ranks time-slicing the one card
+# pay milliseconds per exchange, so they run at SOLVER_N, as does the
+# periodic SA cell problem
+SOLVER_N = 128
+SHARDED_SOLVERS = {
+    "sa": ("raw", "tau", {"precond": "sa"},
+           ("k1_matvec_dot_f32", "k1_matvec_f32", "k1_resid_f32",
+            "k1_sweep_f32", "k1_matvec_f64") + _K3),
+    "fgmres": ("raw", "tau", {"method": "fgmres"},
+               ("k1_matvec_f32", "k1_sweep_f32", "k1_restrict_f32",
+                "k1_matvec_f64") + _K2),
+    "mg": (SOLVER_N, "tau", {"precond": "mg"},
+           ("k1_matvec_dot_f32", "k1_sweep_f32", "k1_restrict_f32",
+            "k1_matvec_f64")),
+    "cheby": (SOLVER_N, "tau", {"precond": "cheby"},
+              ("k1_matvec_dot_f32", "k1_matvec_f64", "k5_matvec_f32")),
+    "deff-sa": (SOLVER_N, "deff", {"precond": "sa"},
+                ("k1_resid_f32", "k1_sweep_f32", "k1_matvec_f64") + _K3),
+}
+
+
+def _sharded_solver(mesh, raw_path, n, vol, entry, kw):
+    """One run of ``SHARDED_SOLVERS`` on this rank, counted by
+    ``_rank_tau``; ``vol`` None: the main volume's slab from the RAW
+    file."""
+    from openimpala_tpu_torch import effective_diffusivity, tortuosity
+    from openimpala_tpu_torch.io import RawReader, threshold_sharded
+
+    dev, timings = mesh.device, {}
+    if vol is None:
+        def call():
+            slab, shape = threshold_sharded(RawReader(raw_path, n, n, n,
+                                                      "UINT8"), 0.5, mesh)
+            return tortuosity(slab, 1, "X", eps=1e-9, mesh=mesh,
+                              original_shape=shape, device=dev,
+                              timings=timings, **kw)
+    elif entry == "deff":
+        def call():
+            return effective_diffusivity(vol, 1, eps=1e-9, mesh=mesh,
+                                         device=dev, timings=timings, **kw)
+    else:
+        def call():
+            return tortuosity(vol, 1, "X", eps=1e-9, mesh=mesh, device=dev,
+                              timings=timings, **kw)
+    torch.cuda.empty_cache()
+    _, out = _rank_tau(call, mesh, _DEFF_KEYS if entry == "deff"
+                       else _TAU_KEYS)
+    out["step_s"] = timings
+    return out
+
+
 _DEFF_KEYS = ("deff", "iterations", "rel_res", "converged", "lanes",
               "volume_fraction")
 
@@ -1909,17 +2082,21 @@ def _rank_deff(mesh, reader):
     return slab, out
 
 
-def _sharded_rank(mesh, raw_path, n, small):
+def _sharded_rank(mesh, raw_path, n, small, solver_vols):
     """One rank of the ``sharded`` phase (run by ``parallel.spawn``): the
     main volume's slab from the RAW file into ``tortuosity``, K1 and K2
-    against their plain forms on the slab layouts, the same slab into
+    against their plain forms on the slab layouts and K3 and K5 on the
+    padded slabs of that system, the same slab into
     ``effective_diffusivity`` and the kernels again on the slab of its
-    periodic cell problem, then the smaller volumes whole under the mesh.
+    periodic cell problem, then the smaller volumes whole under the mesh,
+    then every run of ``SHARDED_SOLVERS`` (``solver_vols``: edge -> the
+    blobs volume) and K3 and K5 on the slab of the SA cell problem.
     Returns host values only."""
     from openimpala_tpu_torch import tortuosity
     from openimpala_tpu_torch.io import RawReader, threshold_sharded
     from openimpala_tpu_torch.ops.stencil import (
         make_cell_problem_system, make_tortuosity_system)
+    from openimpala_tpu_torch.parallel.mesh import shard_volume
 
     dev = mesh.device
     out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
@@ -1936,11 +2113,12 @@ def _sharded_rank(mesh, raw_path, n, small):
 
     res, out["main"] = _rank_tau(main_call, mesh)
     out["main"]["step_s"] = timings
-    active = res.active
+    flow = make_tortuosity_system(res.active, 0, -1.0, 1.0,
+                                  dtype=torch.float32, mesh=mesh)
     del res
-    out["slab_kernels"] = _slab_kernel_checks(mesh, make_tortuosity_system(
-        active, 0, -1.0, 1.0, dtype=torch.float32, mesh=mesh), "flow")
-    del active
+    out["slab_kernels"] = _slab_kernel_checks(mesh, flow, "flow")
+    out["slab_k3_k5"] = _slab_k3_k5_checks(mesh, flow, "flow")
+    del flow
     torch.cuda.empty_cache()
     slab, out["deff"] = _rank_deff(mesh, RawReader(raw_path, n, n, n,
                                                    "UINT8"))
@@ -1951,6 +2129,14 @@ def _sharded_rank(mesh, raw_path, n, small):
     for name, vol in small.items():
         _, out[name] = _rank_tau(lambda: tortuosity(
             vol, 1, "X", eps=1e-9, mesh=mesh, device=dev), mesh)
+    for label, (src, entry, kw, _) in SHARDED_SOLVERS.items():
+        out[label] = _sharded_solver(mesh, raw_path, n, solver_vols.get(src),
+                                     entry, kw)
+    # the SA cell problem's slab: K3 and K5 across the periodic seam
+    cell = make_cell_problem_system(
+        shard_volume(torch.from_numpy(solver_vols[SOLVER_N] == 1), mesh)
+        .to(dev), 0, dtype=torch.float32, mesh=mesh)
+    out["cell_k3_k5"] = _slab_k3_k5_checks(mesh, cell, "cell")
     return out
 
 
@@ -1980,7 +2166,7 @@ def phase_sharded(chk, vol, n, runs):
     import tempfile
     from pathlib import Path
 
-    from openimpala_tpu_torch import tortuosity
+    from openimpala_tpu_torch import effective_diffusivity, tortuosity
     from openimpala_tpu_torch.parallel import spawn
 
     t_phase = time.perf_counter()
@@ -1993,6 +2179,37 @@ def phase_sharded(chk, vol, n, runs):
         log(f"sharded[{name}] single-device {'x'.join(map(str, v.shape))}: "
             f"tau={r.value!r} active_vf={r.active_vf!r} "
             f"iterations={r.iterations} wall_s={time.perf_counter() - t0:.3f}")
+    # the single-card references of SHARDED_SOLVERS: the 512^3 main
+    # paths with the same solver (main[sa]; main[cli], FGMRES with the
+    # default cycle), and calls here at SOLVER_N
+    ns = min(n, SOLVER_N)
+    solver_vols = {SOLVER_N: make_blobs(ns, 0.4, SEED)}
+    solver_refs = {"sa": runs["sa"], "fgmres": dict(
+        runs["cli"], active_vf=iso["active_vf"],
+        peak_mem_GB=runs["cli"]["peak_bytes"] / 1e9)}
+    for label, (src, entry, kw, _) in SHARDED_SOLVERS.items():
+        if src == "raw":
+            continue
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        if entry == "deff":
+            r = effective_diffusivity(solver_vols[src], 1, eps=1e-9,
+                                      device="cuda", **kw)
+            ref = {"deff": np.asarray(r.deff),
+                   "per_direction": tuple(r.iterations)}
+        else:
+            r = tortuosity(solver_vols[src], 1, "X", eps=1e-9,
+                           device="cuda", **kw)
+            ref = {"tau": r.value, "active_vf": r.active_vf,
+                   "iterations": r.iterations}
+        ref.update(wall_s=time.perf_counter() - t0,
+                   peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9)
+        solver_refs[label] = ref
+        log(f"sharded[{label}] single-device {ns}^3 {kw}: "
+            + ", ".join(f"{k}={v!r}" for k, v in ref.items()
+                        if k != "deff") + (f", D_xx={ref['deff'][0][0]!r}"
+                                           if "deff" in ref else ""))
+        del r
     torch.cuda.empty_cache()  # the ranks need the card's memory
     log(f"sharded: volumes and single-device references "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -2007,7 +2224,8 @@ def phase_sharded(chk, vol, n, runs):
     try:
         t0 = time.perf_counter()
         world = spawn.World("chip_smoke:_sharded_rank", SHARDED_RANKS,
-                            args=(str(raw), n, small), backend=backend,
+                            args=(str(raw), n, small, solver_vols),
+                            backend=backend,
                             device=device, timeout=SHARDED_TIMEOUT,
                             workdir=tmp / "world", threads=2)
         try:
@@ -2096,7 +2314,128 @@ def phase_sharded(chk, vol, n, runs):
             f"percolation={got['percolation_method']} wall_s="
             f"{max(o[name]['wall_s'] for o in ranks):.3f} comm "
             + json.dumps(got["comm"]))
+    for out in ranks:
+        for key in ("slab_k3_k5", "cell_k3_k5"):
+            k = out[key]
+            log(f"sharded[slab K3/K5] rank {out['rank']} {key}: SA build "
+                f"{k['build']['s']:.3f} s, gathered at level "
+                f"{k['build']['gather']}, taps {k['build']['taps']}, comm "
+                + json.dumps(k["build"]["comm"]) + f"; K3 on {k['k3_extents']}"
+                f", K5 on {k['k5_extent']}: " + json.dumps(
+                    {name: f"{e:.2e}" for name, e in k["max_err"].items()}))
+            for name, e in k["max_err"].items():
+                chk.max_err[name] = max(chk.max_err.get(name, 0.0), e)
+                chk.max_err[f"{name}.slab"] = max(
+                    chk.max_err.get(f"{name}.slab", 0.0), e)
+    launches.update(_require_sharded_solvers(ranks, solver_refs, n, ns))
     return dict(launches)
+
+
+def _require_sharded_solvers(ranks, refs, n, ns):
+    """Every run of ``SHARDED_SOLVERS``, logged per rank (wall, peak,
+    traffic, steps, launches) and held to the single-card call (``refs``:
+    tau within 1e-6, iterations or Arnoldi steps within 2; the tensor
+    within 1e-6 of its largest entry, iterations within 2 per direction),
+    to rank 0's bits, and to its kernels on every rank: the kernels the
+    run names, no plain form on a CUDA tensor; ``sa`` and ``deff-sa`` K3
+    at every sharded level's padded extent (the extents of
+    ``_slab_k3_k5_checks``' hierarchies), ``cheby`` K5 on the slab padded
+    by one plane (7 per iteration, no K4), ``mg`` K1 on every sharded
+    level in K1's slab layout and on the gathered ones, ``fgmres`` K1's
+    matvec once per Arnoldi step at least.  Returns the launches summed
+    over the ranks."""
+    from openimpala_tpu_torch.solve.preconditioners import mg_depth
+    from openimpala_tpu_torch.solve.slab_mg import gather_level
+
+    size = len(ranks)
+    xl = ns // size
+    depth = mg_depth((ns,) * 3, 10)
+    g = gather_level(xl, ((0, 1, 2),) * depth)
+    mg_extents = ([((xl >> k) + 4, ns >> k, ns >> k) for k in range(g)]
+                  + [(ns >> k,) * 3 for k in range(g, depth + 1)])
+    launches = collections.Counter()
+    for label, (src, entry, kw, kernels) in SHARDED_SOLVERS.items():
+        first, ref = ranks[0][label], refs[label]
+        result = "deff" if entry == "deff" else "value"
+        for out in ranks:
+            m, rank = out[label], out["rank"]
+            shown = (f"D_xx={m['deff'][0][0]!r}" if entry == "deff"
+                     else f"tau={m['value']!r}")
+            log(f"sharded[{label}] rank {rank}: {shown} iterations="
+                f"{m['iterations']} rel_res={m['rel_res']!r} wall_s="
+                f"{m['wall_s']:.3f} peak_mem_GB={m['peak_mem_GB']:.2f} comm "
+                + json.dumps(m["comm"]))
+            log(f"sharded[{label}] rank {rank} step_s " + json.dumps(
+                {k: round(v, 4) for k, v in m["step_s"].items()})
+                + " launches " + json.dumps(m["counts"], sort_keys=True))
+            missing = [k for k in kernels if not m["counts"].get(k)]
+            require(not missing, f"sharded[{label}] rank {rank}: never "
+                                 f"launched {missing}")
+            require(not m["plain"], f"sharded[{label}] rank {rank}: plain "
+                                    f"versions ran on CUDA tensors: "
+                                    f"{m['plain']}")
+            for key in (result, "iterations", "rel_res"):
+                require(np.array_equal(m[key], first[key]),
+                        f"sharded[{label}]: rank {rank}'s {key} {m[key]!r} "
+                        f"differs from rank 0's {first[key]!r}")
+            if label in ("sa", "deff-sa"):
+                want = out["slab_k3_k5" if label == "sa"
+                           else "cell_k3_k5"]["k3_extents"]
+                bare = [e for e in want if not any(
+                    m["at"].get((k, e)) for k in _K3)]
+                require(not bare, f"sharded[{label}] rank {rank}: no K3 "
+                                  f"launch on the padded slabs {bare}")
+            elif label == "cheby":
+                ext = (xl + 2, ns, ns)
+                c = m["counts"]
+                require(m["at"].get(("k5_matvec_f32", ext), 0)
+                        == c["k5_matvec_f32"],
+                        f"sharded[cheby] rank {rank}: K5 launched off the "
+                        f"padded slab {ext}: {m['at']}")
+                require(c["k5_matvec_f32"] == (CHEBY_DEGREE - 1)
+                        * c["k1_matvec_dot_f32"],
+                        f"sharded[cheby] rank {rank}: K5 {c['k5_matvec_f32']}"
+                        f" times for {c['k1_matvec_dot_f32']} applications")
+                require(not any(k.startswith("k4_") for k in c),
+                        f"sharded[cheby] rank {rank}: K4 launched")
+            elif label == "mg":
+                bare = [e for e in mg_extents if not m["k1_at"].get(e)]
+                require(not bare, f"sharded[mg] rank {rank}: no K1 launch "
+                                  f"at the levels {bare} (K1 by extent "
+                                  f"{m['k1_at']})")
+            elif label == "fgmres":
+                mv = m["counts"].get("k1_matvec_f32", 0)
+                require(mv >= m["iterations"],
+                        f"sharded[fgmres] rank {rank}: K1 matvec {mv} times "
+                        f"for {m['iterations']} Arnoldi steps")
+            launches.update(m["counts"])
+        if entry == "deff":
+            scale = float(np.abs(ref["deff"]).max())
+            err = float(np.abs(first["deff"] - ref["deff"]).max())
+            require(first["converged"] and err <= 1e-6 * scale,
+                    f"sharded[{label}]: converged={first['converged']}, the "
+                    f"tensor {err:.3e} from one card's (largest {scale:.3e})")
+            require(all(abs(a - b) <= 2 for a, b in zip(
+                first["iterations"], ref["per_direction"])),
+                f"sharded[{label}]: iterations {first['iterations']} "
+                f"against {ref['per_direction']}")
+            vs = (f"D_xx {first['deff'][0][0]!r} (tensor {err:.3e} from "
+                  "one card's)")
+        else:
+            rel = _require_sharded_tau(label, first, ref["tau"],
+                                       ref["active_vf"], ref["iterations"])
+            vs = f"tau {first['value']!r} (rel {rel:.3e} to one card's)"
+        where = f"{n}^3 from the RAW file" if src == "raw" else f"{ns}^3"
+        log(f"sharded[{label}] {where} on {size} ranks {kw}: {vs}, "
+            f"iterations {first['iterations']} "
+            f"against {ref.get('iterations', ref.get('per_direction'))}, "
+            f"wall_s {max(o[label]['wall_s'] for o in ranks):.3f} against "
+            f"{ref['wall_s']:.3f}, peak_mem_GB per rank "
+            + ", ".join(f"{o[label]['peak_mem_GB']:.2f}" for o in ranks)
+            + f" against {ref.get('peak_mem_GB', float('nan')):.2f}; "
+            "traffic per rank " + json.dumps([o[label]["comm"]
+                                              for o in ranks]))
+    return launches
 
 
 def _require_sharded_deff(out, first, single):

@@ -18,12 +18,24 @@ Modes, with d the (0,0,0) tap:
 Dispatch rule: ``offset_apply``, ``offset_resid`` and ``offset_sweep``
 launch the CUDA kernel K3 (``ops/offset_cuda.py``) for a CUDA tensor and
 run the plain PyTorch form beside them only for a CPU tensor.
+
+X slabs (the counterpart of ``ops/stencil.py::slab_stencil``): a level's
+coefficients are copied once into a ``(X_local + 2R, T, Y, Z)`` layout
+(``parallel.halo.pad_x``, R = the largest X reach of its taps, the ghost
+planes' coefficients 0), and ``slab_offset`` pads ``x`` by R planes from the
+neighbouring ranks (``halo_exchange_x``: the wrap or zeros at the end
+ranks), runs the dispatchers above unchanged on the padded slab and keeps
+its planes ``[R, R + X_local)``.  K3 wraps every axis by a true modulus,
+but an interior cell reads at most R planes away, so it never wraps X; an
+output cell reads only its own coefficients, so the ghost planes' outputs
+are simply dropped.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.halo import halo_exchange_x, pad_x
 from . import offset_cuda, stencil_cuda
 from .stencil import _full, _on_cpu, _zero
 
@@ -105,3 +117,35 @@ def offset_sweep(x, r, packed, offsets, omega: float):
     if _on_cpu(x):
         return offset_sweep_plain(x, r, packed, offsets, omega)
     return offset_cuda.k3_offset("sweep", x, r, packed, offsets, omega=omega)
+
+
+# ---------------------------------------------------------------------------
+# X slabs: K3 on a slab padded by R exchanged planes
+# ---------------------------------------------------------------------------
+
+
+def x_reach(offsets) -> int:
+    """R: the largest |o_x| among ``offsets``, the halo width a slab needs."""
+    return max(abs(o[0]) for o in offsets)
+
+
+def slab_offset(mode: str, x, r, padded, offsets, width: int,
+                periodic_x: bool, mesh, n_taps=None, omega: float = 0.9):
+    """One K3 mode (``"apply"``, ``"resid"``, ``"sweep"``) on this rank's
+    slab: ``x`` and ``r`` (X, Y, Z), ``padded`` the coefficients in the
+    slab layout (``pad_x`` with ``width`` = R); the dispatchers on the
+    padded copies (K3 on the card, the plain form on the CPU).  Returns the
+    slab's (X, Y, Z) output."""
+    X = x.shape[0]
+    xp = halo_exchange_x(x, periodic_x, mesh, width)
+    if mode == "apply":
+        out = offset_apply(xp, padded, offsets, n_taps)
+    else:
+        rp = pad_x(r, width)  # read only at the output cell
+        if mode == "resid":
+            out = offset_resid(xp, rp, padded, offsets)
+        elif mode == "sweep":
+            out = offset_sweep(xp, rp, padded, offsets, omega)
+        else:
+            raise ValueError(f"unknown K3 mode {mode!r}")
+    return out[width:width + X]

@@ -24,7 +24,9 @@ Dispatch rule: ``apply_code``, ``apply_code_with_dot``, ``smooth_sweep``,
 beside them only for a CPU tensor.  Any other device raises.
 ``apply_restricted`` and ``apply_restricted_with_dot``, the operator from
 explicit (diag, free) arrays and optionally over a batch of volumes, go to
-K4 or K5 by the same rule (``restricted_kernel`` says which).
+K4 or K5 by the same rule (``restricted_kernel`` says which);
+``apply_restricted_slab`` is the unbatched operator on an X slab, K5 on
+the slab padded by one exchanged plane.
 
 X slabs (``parallel/mesh.py``): a system built with a ``mesh`` holds this
 rank's slab of every field, and its code once more in the slab layout of
@@ -47,7 +49,12 @@ import dataclasses
 
 import torch
 
-from ..parallel.halo import fill_ghosts_, pad_halo, pad_halo_slab
+from ..parallel.halo import (
+    fill_ghosts_,
+    halo_exchange_x,
+    pad_halo,
+    pad_halo_slab,
+)
 from . import stencil_cuda
 
 Axis = int  # 0=X, 1=Y, 2=Z (matches reference Direction enum)
@@ -88,12 +95,6 @@ def neighbor_count_axes(active, periodic, mesh=None):
     return tuple(counts)
 
 
-def neighbor_count(active, periodic):
-    """Total active-neighbour count (0..6) per cell, int8."""
-    cx, cy, cz = neighbor_count_axes(active, periodic)
-    return cx + cy + cz
-
-
 def _minus_one_bf16(device):
     return torch.full((), -1.0, dtype=torch.bfloat16, device=device)
 
@@ -111,11 +112,14 @@ def pack_code_axes(counts, free):
                        _minus_one_bf16(cx.device))
 
 
-def pack_code_for(w, active, free, periodic):
-    """The packed geometry for weights ``w`` (mirrors ``decode_code``)."""
+def pack_code_for(w, active, free, periodic, mesh=None):
+    """The packed geometry for weights ``w`` (mirrors ``decode_code``);
+    under a ``mesh``, of this rank's slab, the X neighbours across a seam
+    read from the neighbouring rank's plane (one exchange)."""
+    counts = neighbor_count_axes(active, periodic, mesh)
     if uniform_w(w):
-        return pack_code(neighbor_count(active, periodic), free)
-    return pack_code_axes(neighbor_count_axes(active, periodic), free)
+        return pack_code(counts[0] + counts[1] + counts[2], free)
+    return pack_code_axes(counts, free)
 
 
 def unpack_code_axes(code, dtype):
@@ -389,6 +393,19 @@ def slab_stencil(mode: str, x, r, code_halo, w, periodic, mesh,
     if mode == "restrict":
         return residual_restrict(xp, rp, code_halo, w, per)[1:-1]
     raise ValueError(f"unknown K1 mode {mode!r}")
+
+
+def apply_restricted_slab(x, diag_halo, free_halo, w, periodic, mesh):
+    """``apply_restricted`` of one volume on this rank's X slab: ``x``
+    padded by one plane from the neighbouring ranks (the wrap or zeros at
+    the end ranks), the operator run on the padded slab with X clamped
+    (K5 on the card, the plain form on the CPU; ``diag_halo`` and
+    ``free_halo`` padded once by ``parallel.halo.pad_x``, 0 on the ghost
+    planes, whose outputs are dropped), the slab's planes kept."""
+    xp = halo_exchange_x(x, bool(periodic[0]), mesh)
+    out = apply_restricted(xp, diag_halo, free_halo, w,
+                           slab_periodic(periodic))
+    return out[1:-1]
 
 
 @dataclasses.dataclass(frozen=True)

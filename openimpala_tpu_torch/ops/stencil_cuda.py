@@ -70,7 +70,8 @@ Counters: every launch adds one to ``launches[name]``
 ``k3_<mode>_<f32|f64>``, ``k3_apply_prefix_<f32|f64>``,
 ``k4_matvec[_dot]_<f32|f64>``, ``k5_matvec_<f32|f64>``), and every call of
 a plain form with a CUDA tensor adds one to ``plain_on_cuda[name]``.
-K3 runs on every level of a hierarchy, so its launcher also adds one to
+K3 runs on every level of a hierarchy, and K5 on a whole volume or on a
+padded X slab, so their launchers also add one to
 ``launches_at[(name, (X, Y, Z))]``: the same launches, split by extent.
 K1's launcher adds one to ``launches_route[(name, route)]`` and to
 ``launches_route_at[(name, route, (X, Y, Z))]``: the same launches, split
@@ -172,7 +173,7 @@ def uncounted():
 
 def _count(name: str, shape=None, route=None):
     """One launch of ``name``; ``route``: K1's; ``shape`` with no route:
-    the extent K3 ran at."""
+    the extent K3 or K5 ran at."""
     if getattr(_local, "uncounted", False):
         return
     launches[name] += 1
@@ -658,5 +659,5 @@ def k5_matvec_stream(x, diag, free, w, periodic):
         float(w[1]), float(w[2]),
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, lib, "k5", "K5 matvec")
-    _count(f"k5_matvec_{_DTYPES[x.dtype]}")
+    _count(f"k5_matvec_{_DTYPES[x.dtype]}", (X, Y, Z))
     return out

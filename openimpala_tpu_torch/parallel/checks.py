@@ -289,3 +289,46 @@ def vf_counts(mesh, path, shape, inputs):
               for pad in (False, True)]
     return counts, [None if got is None else (tuple(got[0].shape), got[1])
                     for got in loaded]
+
+
+# ---------------------------------------------------------------------------
+# every preconditioner and FGMRES on slabs: the slab forms of "sa", "mg"
+# and "cheby", the probed hierarchy, and the entry points above with them
+# ---------------------------------------------------------------------------
+
+
+def _any_system(mesh, active, kind, direction, dx):
+    """The slab's flow-through system (``kind="flow"``, X padded to the
+    mesh) or periodic cell problem (``"cell"``), in float64."""
+    if kind == "cell":
+        return make_cell_problem_system(_slab(mesh, active, torch.bool),
+                                        direction, dx, dtype=torch.float64,
+                                        mesh=mesh)
+    return _system(mesh, active, direction, dx)
+
+
+def precond_apply(mesh, active, r, kind, direction, dx, precond, opts):
+    """One application of the slab form of ``precond`` (``make_precond``)
+    to the slab of ``r`` (padded with zeros as the mask is): the slab of
+    the result, and the level the cycle gathers at (None for a
+    preconditioner without levels)."""
+    M = make_precond(_any_system(mesh, active, kind, direction, dx),
+                     precond, opts)
+    z = M(_slab(mesh, pad_volume_to(r, mesh.size), torch.float64))
+    return z.cpu().numpy(), getattr(M, "gather", None)
+
+
+def sa_levels(mesh, active, r, kind, direction, dx, opts):
+    """The smoothed-aggregation hierarchy of the slab system: the level it
+    gathers at, each sharded level's ``(offsets, halo width, the rank's
+    slab of its coefficients)``, each gathered level's ``(offsets, its
+    global coefficients)``, and one application to the slab of ``r``."""
+    M = make_precond(_any_system(mesh, active, kind, direction, dx), "sa",
+                     opts)
+    k = max(0, M.gather - 1)
+    z = M(_slab(mesh, pad_volume_to(r, mesh.size), torch.float64))
+    return (M.gather,
+            [(l.offsets, l.width, l.packed.cpu().numpy())
+             for l in M.levels[:k]],
+            [(l.offsets, l.packed.cpu().numpy()) for l in M.glob.levels[k:]],
+            z.cpu().numpy())

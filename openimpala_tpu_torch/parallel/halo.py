@@ -1,11 +1,16 @@
-"""Width-1 ghost layers around a volume or an X slab, periodic or clamped
-(the port's AMReX ``FillBoundary``, reference
+"""Ghost layers around a volume or an X slab, periodic or clamped (the
+port's AMReX ``FillBoundary``, reference
 ``src/props/TortuosityHypre.cpp:584-585``).
 
-``pad_halo`` is the single-device form.  ``halo_exchange_x`` is the slab
-form: each rank sends its first and last X planes to its neighbours
-(``Mesh.exchange``); ``slab_stencil_apply`` wraps a stencil on padded
-blocks into an operation on slabs, the counterpart of the JAX package's
+``pad_halo`` is the single-device form, one cell wide.
+``halo_exchange_x`` is the slab form: each rank sends its first and last
+``width`` X planes to its neighbours (``Mesh.exchange``; ``width`` 2 for
+the offset stencils of the smoothed-aggregation levels, whose X taps reach
+two planes).  A slab thinner than ``width`` cannot be served by its
+nearest neighbours and raises: such a level is gathered instead
+(``solve/slab_sa.py``), never exchanged two ranks away.
+``slab_stencil_apply`` wraps a stencil on padded blocks into an operation
+on slabs, the counterpart of the JAX package's
 ``shard_map_stencil_apply``.  ``roll_x`` is ``torch.roll`` along X of the
 global array, done on slabs.
 """
@@ -41,34 +46,52 @@ def _pad_axis(x, axis: int, periodic: bool):
     return torch.cat([lo, x, hi], dim=axis)
 
 
-def halo_exchange_x(x_local, periodic_x: bool, mesh):
-    """``(X_local+2, Y, Z)``: plane 0 is the previous rank's last plane,
-    plane -1 the next rank's first plane.  The end ranks receive the
-    wrapped plane (periodic) or zeros (clamped); with no mesh, or one
-    rank, the wrap is the slab's own (the JAX function's single-device
-    branch)."""
+def halo_exchange_x(x_local, periodic_x: bool, mesh, width: int = 1):
+    """``(X_local + 2 width, Y, Z)``: the first ``width`` planes are the
+    previous rank's last planes, the last ``width`` the next rank's first
+    planes.  The end ranks receive the wrapped planes (periodic) or zeros
+    (clamped); with no mesh, or one rank, the wrap is the slab's own (the
+    JAX function's single-device branch).  ``X_local`` must be at least
+    ``width``."""
     X = x_local.shape[0]
-    xp = x_local.new_empty((X + 2,) + tuple(x_local.shape[1:]))
-    xp[1:-1].copy_(x_local)
-    return fill_ghosts_(xp, 0, X + 1, periodic_x, mesh)
+    if X < width:
+        raise ValueError(f"a slab of {X} plane(s) cannot fill a halo of "
+                         f"{width}: gather the level instead")
+    xp = x_local.new_empty((X + 2 * width,) + tuple(x_local.shape[1:]))
+    xp[width:X + width].copy_(x_local)
+    return fill_ghosts_(xp, width - 1, X + width, periodic_x, mesh, width)
 
 
-def fill_ghosts_(xp, lo: int, hi: int, periodic_x: bool, mesh):
-    """Write the ghost planes ``xp[lo]`` and ``xp[hi]`` of a padded slab in
-    place from the neighbours' interior planes (``xp[lo+1]`` is this
-    rank's first plane, ``xp[hi-1]`` its last)."""
+def fill_ghosts_(xp, lo: int, hi: int, periodic_x: bool, mesh,
+                 width: int = 1):
+    """Write the ghost planes ``xp[lo - width + 1 : lo + 1]`` and
+    ``xp[hi : hi + width]`` of a padded slab in place from the neighbours'
+    interior planes (``xp[lo + 1]`` is this rank's first plane,
+    ``xp[hi - 1]`` its last)."""
+    glo_v = xp[lo + 1 - width:lo + 1]
+    ghi_v = xp[hi:hi + width]
+    first, last = xp[lo + 1:lo + 1 + width], xp[hi - width:hi]
     if mesh is None:  # the slab's own wrap, or zeros
         if periodic_x:
-            xp[lo].copy_(xp[hi - 1])
-            xp[hi].copy_(xp[lo + 1])
+            glo_v.copy_(last)
+            ghi_v.copy_(first)
         else:
-            xp[lo].zero_()
-            xp[hi].zero_()
+            glo_v.zero_()
+            ghi_v.zero_()
         return xp
-    glo, ghi = mesh.exchange(xp[lo + 1], xp[hi - 1], periodic_x)
-    xp[lo].copy_(glo)
-    xp[hi].copy_(ghi)
+    glo, ghi = mesh.exchange(first, last, periodic_x)
+    glo_v.copy_(glo)
+    ghi_v.copy_(ghi)
     return xp
+
+
+def pad_x(t, width: int = 1, lo=None):
+    """``t`` with ``width`` planes of 0 (False) on each side of X
+    (contiguous), the lower ones ``lo`` where given: the layout of a
+    slab's fixed fields (coefficients, diagonals, masks) beside a halo of
+    that width, built once."""
+    z = t.new_zeros((width,) + tuple(t.shape[1:]))
+    return torch.cat([z if lo is None else lo, t, z]).contiguous()
 
 
 def pad_halo_slab(x, periodic, mesh):

@@ -20,8 +20,10 @@ device.  Its collectives take and return tensors on that device:
 
 Sums over ranks (``allsum``) gather the partial values and add them in
 rank order in float64, so every rank holds the same bits and takes the
-same branch.  ``stats`` counts every exchange, gather, sum and
-all-to-all with its bytes.
+same branch; maxima and minima (``allmax``, ``allmin``: the smoothed-
+aggregation prune, FGMRES's restart depth) are exact.  ``stats`` counts
+every exchange, gather, sum, maximum, minimum and all-to-all with its
+bytes.
 """
 
 from __future__ import annotations
@@ -45,8 +47,9 @@ AXIS = "x"  # name of the decomposed axis (the JAX package's mesh axis)
 AUTO_SHARD_MIN_CELLS = 96 ** 3
 
 # since reset_stats(): halo exchanges and the bytes each rank sent for
-# them, gathers and their bytes received, sums over ranks, all-to-alls
-# and the bytes each rank sent to the others
+# them, gathers and their bytes received, sums, maxima and minima over
+# ranks (each one gather), all-to-alls and the bytes each rank sent to
+# the others
 stats: collections.Counter = collections.Counter()
 
 _log = logging.getLogger(__name__)
@@ -124,6 +127,17 @@ class Mesh:
         for p in parts[1:]:
             acc = acc + p
         return acc.to(t.dtype)
+
+    def allmax(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise maximum of ``t`` over the ranks (one gather, reduced
+        on every rank: exact, so the same bits everywhere)."""
+        stats["allmaxes"] += 1
+        return self.all_gather(t).amax(dim=0)
+
+    def allmin(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise minimum of ``t`` over the ranks (as ``allmax``)."""
+        stats["allmins"] += 1
+        return self.all_gather(t).amin(dim=0)
 
     def exchange(self, first: torch.Tensor, last: torch.Tensor,
                  periodic: bool):

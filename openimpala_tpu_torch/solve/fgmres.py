@@ -23,6 +23,15 @@ CUDA device the memory ``torch.cuda.mem_get_info`` reports free (plus what
 the caching allocator holds unused) less ``WORK_FIELDS`` fields of the
 cycle's own work; on the CPU the JAX package's 6 GiB fallback, so that
 both packages pick the same m there.
+
+On X slabs (a system with a ``mesh``) every inner product of the
+Gram-Schmidt loop and every norm is summed over the ranks in rank order
+(``Mesh.allsum``), so every rank reads the same Hessenberg column and
+takes the same exits, breaks and back-substitution; ``_auto_restart``
+counts the rank's slab against its share of the card (the card's free
+memory over the ranks on it, ``Mesh.ranks_on_device``) and takes the
+smallest m over the ranks, since ranks that chose other depths would
+wait on each other's sums.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import numpy as np
 import torch
 
 from ..utils.common import device_hbm_limit
-from .cg import SolveResult, _dot
+from .cg import SolveResult, _dot, _mesh
 from .preconditioners import IdentityPreconditioner
 
 _NP_FLOAT = {torch.float32: np.float32, torch.float64: np.float64}
@@ -83,11 +92,12 @@ def _arnoldi_cycle(system, precond, z, r, r0, eps_abs, restart: int,
     not the Arnoldi relation's: it seeds the next cycle and does not drift
     from the true residual."""
     ft = _NP_FLOAT[r.dtype]
+    mesh = _mesh(system)
     m = int(restart)
     tiny = ft(1e-30)
     eps_abs = ft(eps_abs)
     if beta is None:
-        beta = ft(float(torch.sqrt(_dot(r, r))))
+        beta = ft(float(torch.sqrt(_dot(r, r, mesh))))
     V = [r / float(beta if beta > 0 else ft(1.0))]
     Z = []
     H = np.zeros((m + 1, m), ft)
@@ -101,10 +111,10 @@ def _arnoldi_cycle(system, precond, z, r, r0, eps_abs, restart: int,
         w = system.apply(zj)
         col = []
         for i in range(j + 1):  # modified Gram-Schmidt, on the device
-            hij = _dot(w, V[i])
+            hij = _dot(w, V[i], mesh)
             w = w - hij * V[i]
             col.append(hij)
-        col.append(torch.sqrt(_dot(w, w)))
+        col.append(torch.sqrt(_dot(w, w, mesh)))
         hcol = np.zeros(m + 1, ft)
         hcol[:j + 2] = torch.stack(col).cpu().numpy()  # ONE read per step
         hj1 = hcol[j + 1]
@@ -134,7 +144,7 @@ def _arnoldi_cycle(system, precond, z, r, r0, eps_abs, restart: int,
         z_new.add_(Z[i], alpha=float(y[i]))
     del Z
     r_new = r0 - system.apply(z_new)
-    rnorm = ft(float(torch.sqrt(_dot(r_new, r_new))))
+    rnorm = ft(float(torch.sqrt(_dot(r_new, r_new, mesh))))
     return z_new, r_new, rnorm, k
 
 
@@ -152,7 +162,7 @@ def _fgmres_host_loop(system, r0, denom, eps, maxiter: int, precond,
     it = 0
     stall = 0
     steps = []
-    rnorm = ft(float(torch.sqrt(_dot(r, r))))
+    rnorm = ft(float(torch.sqrt(_dot(r, r, _mesh(system)))))
     rel = float(rnorm) / denom_v
     while rel > eps_v and it < maxiter:
         z, r, rnorm, k = _arnoldi_cycle(system, precond, z, r, r0, eps_abs,
@@ -180,26 +190,34 @@ def _fgmres_host_loop(system, r0, denom, eps, maxiter: int, precond,
                        cycle_steps=tuple(steps))
 
 
-def _device_hbm_budget(field_bytes: float, device) -> float:
+def _device_hbm_budget(field_bytes: float, device, sharers: int = 1) -> float:
     """Bytes the Krylov basis may take on ``device``: on CUDA,
     ``BUDGET_SHARE`` of the free memory (``torch.cuda.mem_get_info``, plus
-    what the caching allocator holds unused) less ``WORK_FIELDS`` fields;
-    ``FALLBACK_BUDGET`` where the device reports no memory (the CPU)."""
+    what the caching allocator holds unused) over the ``sharers``
+    processes that solve on the card, less ``WORK_FIELDS`` fields;
+    ``FALLBACK_BUDGET`` where the device reports no memory (the CPU, as
+    the JAX package's per-device constant)."""
     dev = torch.device(device)
     if device_hbm_limit(dev) <= 0:
         return FALLBACK_BUDGET
     free = torch.cuda.mem_get_info(dev)[0]
     free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-    return BUDGET_SHARE * free - WORK_FIELDS * field_bytes
+    return BUDGET_SHARE * free / sharers - WORK_FIELDS * field_bytes
 
 
-def _auto_restart(r0, restart: int) -> int:
+def _auto_restart(r0, restart: int, mesh=None) -> int:
     """Cap the Krylov depth so that the 2m + 1 basis fields fit in the
-    budget (``_device_hbm_budget``); at least 4."""
+    budget (``_device_hbm_budget``); at least 4.  Under a ``mesh`` ``r0``
+    is the rank's slab, the budget its share of the card, and m the
+    smallest over the ranks."""
     field_bytes = r0.numel() * r0.element_size()
-    budget = _device_hbm_budget(field_bytes, r0.device)
-    m = int((budget / max(field_bytes, 1) - 1) // 2)
-    return max(4, min(int(restart), m))
+    sharers = 1 if mesh is None else mesh.ranks_on_device()
+    budget = _device_hbm_budget(field_bytes, r0.device, sharers)
+    m = max(4, min(int(restart), int((budget / max(field_bytes, 1) - 1)
+                                     // 2)))
+    if mesh is not None:
+        m = int(mesh.allmin(torch.tensor(m, device=mesh.device)))
+    return m
 
 
 def fgmres(system, r0, denom, eps, maxiter: int, precond=None,
@@ -214,10 +232,11 @@ def fgmres(system, r0, denom, eps, maxiter: int, precond=None,
     Arnoldi steps of each cycle (``cycle_steps``)."""
     if precond is None:
         precond = IdentityPreconditioner()
+    mesh = _mesh(system)
     denom = torch.as_tensor(denom, dtype=r0.dtype).to(r0.device)
-    denom = torch.where(denom > 0, denom, torch.sqrt(_dot(r0, r0)))
+    denom = torch.where(denom > 0, denom, torch.sqrt(_dot(r0, r0, mesh)))
     denom = torch.where(denom > 0, denom, 1.0)
-    restart = _auto_restart(r0, restart)
+    restart = _auto_restart(r0, restart, mesh)
     return _fgmres_host_loop(system, r0, denom, eps, int(maxiter), precond,
                              restart, stall_break=stall_break,
                              verbose=verbose, history=history)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..ops import stencil_cuda
-from ..parallel.halo import roll_x
+from ..parallel.halo import pad_x, roll_x
 from ..ops.stencil import (
     _full,
     _minus_one_bf16,
@@ -27,6 +27,7 @@ from ..ops.stencil import (
     _zero,
     apply_code,
     apply_restricted,
+    apply_restricted_slab,
     decode_code,
     pack_code_for,
     residual_restrict,
@@ -79,6 +80,13 @@ class ChebyshevPreconditioner:
     systems that share ``w`` and ``periodic``; ``r`` has their shape.  The
     operator goes through ``apply_restricted``: kernel K5 (one volume) or
     K4 (a batch) on the card.
+
+    On an X slab (a system with a ``mesh``) ``diag`` and ``free`` are the
+    slab's, and ``diag_halo``/``free_halo`` the same padded once by a
+    plane of 0 on each side: the operator is ``apply_restricted_slab``
+    (K5 on the slab padded by one exchanged plane, the wrap across the
+    seam where X is periodic).  The recurrence is elementwise, with no
+    reduction, so it is unchanged.
     """
 
     diag: torch.Tensor
@@ -88,15 +96,22 @@ class ChebyshevPreconditioner:
     degree: int = 8
     hi: float = 2.0
     ratio: float = 24.0
+    mesh: object = None
+    diag_halo: torch.Tensor = None
+    free_halo: torch.Tensor = None
 
     @classmethod
     def from_system(cls, system, degree: int = 8, hi: float = 2.0,
                     ratio: float = 24.0):
         free = system.free
-        return cls(diag=system.diag.expand(free.shape)
-                   .to(system.r0_b.dtype).contiguous(),
-                   free=free, w=system.w, periodic=system.periodic,
-                   degree=int(degree), hi=float(hi), ratio=float(ratio))
+        diag = system.diag.expand(free.shape).to(system.r0_b.dtype) \
+            .contiguous()
+        mesh = getattr(system, "mesh", None)
+        halos = {} if mesh is None else dict(
+            mesh=mesh, diag_halo=pad_x(diag), free_halo=pad_x(free))
+        return cls(diag=diag, free=free, w=system.w,
+                   periodic=system.periodic, degree=int(degree),
+                   hi=float(hi), ratio=float(ratio), **halos)
 
     def _jacobi_parts(self, dtype):
         """(where D^{-1} acts, the divisor there) for ``_minv``."""
@@ -109,6 +124,9 @@ class ChebyshevPreconditioner:
         return torch.where(ok, v / safe, _zero(v))
 
     def _apply_A(self, v):
+        if self.mesh is not None:
+            return apply_restricted_slab(v, self.diag_halo, self.free_halo,
+                                         self.w, self.periodic, self.mesh)
         return apply_restricted(v, self.diag, self.free, self.w,
                                 self.periodic)
 
@@ -689,6 +707,28 @@ def _coarsen_free(free):
     return _pairany(_pairany(_pairany(free, 2), 1), 0)
 
 
+def mg_depth(shape, max_levels: int) -> int:
+    """How many coarse levels ``MultigridPreconditioner.from_system``
+    builds below a fine level of ``shape``."""
+    n, shape = 0, tuple(shape)
+    while n + 1 < max_levels and _can_coarsen(shape):
+        n, shape = n + 1, tuple(s // 2 for s in shape)
+    return n
+
+
+def mg_code(free, w, periodic, mesh=None):
+    """A coarse level's code on its free set: the periodic cell problem's
+    constant (every face counts), else rediscretised by counting the free
+    neighbours on the coarse mask (under a ``mesh``, of this rank's slab,
+    across the seams)."""
+    if periodic[0]:  # cell problem: all-periodic
+        code_free = 6 if uniform_w(w) else 2 * 16 + 2 * 4 + 2
+        return torch.where(free, _full(code_free, torch.bfloat16,
+                                       free.device),
+                           _minus_one_bf16(free.device))
+    return pack_code_for(w, free, free, periodic, mesh)
+
+
 @dataclasses.dataclass(frozen=True)
 class MultigridPreconditioner:
     """Geometric multigrid V-cycle on rediscretised masks.
@@ -706,7 +746,14 @@ class MultigridPreconditioner:
 
     @classmethod
     def from_system(cls, system, max_levels: int = 10, **kw):
-        periodic_cell = bool(system.periodic[0])  # cell problem: all-periodic
+        """Under a ``mesh`` (an X-slab system) the slab form,
+        ``solve/slab_mg.py::SlabMultigridPreconditioner``."""
+        if getattr(system, "mesh", None) is not None \
+                and cls is MultigridPreconditioner:
+            from .slab_mg import SlabMultigridPreconditioner
+
+            return SlabMultigridPreconditioner.from_system(
+                system, max_levels, **kw)
         levels = [MGLevel(code=system.code, w=system.w,
                           periodic=system.periodic)]
         free = system.free
@@ -714,15 +761,8 @@ class MultigridPreconditioner:
         while len(levels) < max_levels and _can_coarsen(tuple(free.shape)):
             free = _coarsen_free(free)
             w = tuple(wi / 4.0 for wi in w)  # dx doubles (aniso preserved)
-            if periodic_cell:
-                code_free = 6 if uniform_w(w) else 2 * 16 + 2 * 4 + 2
-                code = torch.where(free, _full(code_free, torch.bfloat16,
-                                               free.device),
-                                   _minus_one_bf16(free.device))
-            else:
-                # rediscretise: count free neighbours on the coarse mask
-                code = pack_code_for(w, free, free, system.periodic)
-            levels.append(MGLevel(code=code, w=w, periodic=system.periodic))
+            levels.append(MGLevel(code=mg_code(free, w, system.periodic),
+                                  w=w, periodic=system.periodic))
         return cls(levels=tuple(levels), **kw)
 
     def _smooth(self, level: MGLevel, x, r, n: int):

@@ -16,9 +16,12 @@ On CUDA the PCG iterations of every round of a solve replay one CUDA graph
 the graph and its pool are released when the solve returns.
 
 On X slabs (a system with a ``mesh``) the outer residual's norms are
-summed over the ranks, so every rank takes the same branch; the PCG runs
-eagerly (``utils/graphs.py::chunk_graph``) with the default cycle on
-slabs (``solve/slab_mg.py``), Jacobi or none.
+summed over the ranks, so every rank takes the same branch; the Krylov
+solve (PCG or FGMRES) runs eagerly (``utils/graphs.py::chunk_graph``)
+with every preconditioner in its slab form: the default cycle
+(``solve/slab_mg.py``), ``"mg"`` (``SlabMultigridPreconditioner``),
+``"sa"`` (``solve/slab_sa.py``), ``"cheby"`` (K5 on the padded slab),
+Jacobi or none.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from .preconditioners import (
 )
 from .sa import SAMGPreconditioner
 from .slab_mg import SlabGalerkinMGPreconditioner
+from .slab_sa import SlabSAMGPreconditioner
 
 
 def _norm(r, mesh):
@@ -50,9 +54,6 @@ def _norm(r, mesh):
 def _krylov(method: str, system, r0, denom, eps, maxiter, precond,
             refined: bool = True, verbose: int = 0, history=None,
             _graph=None):
-    if _mesh(system) is not None and method not in ("cg", "pcg"):
-        raise NotImplementedError(
-            f"method {method!r} on X slabs is not ported yet; use 'cg'")
     if method in ("cg", "pcg"):
         return cg(system, r0, denom, eps, maxiter, precond=precond,
                   verbose=verbose, history=history, _graph=_graph)
@@ -97,7 +98,8 @@ def make_precond(sys_, precond, opts=None):
     """``"auto"`` (= ``"gmg"``), ``"gmg"``, ``"mg"``, ``"sa"`` (=
     ``"samg"``), ``"cheby"`` (= ``"chebyshev"``), ``"jacobi"`` or
     ``"none"``; any other name raises.  A preconditioner that is already built (a callable
-    ``r -> z``) is returned as it is."""
+    ``r -> z``) is returned as it is.  A slab system (one with a ``mesh``)
+    gets each one's slab form."""
     opts = opts or {}
     if precond is not None and not isinstance(precond, str):
         return precond
@@ -107,16 +109,14 @@ def make_precond(sys_, precond, opts=None):
         return None
     if precond == "jacobi":
         return JacobiPreconditioner.from_system(sys_)
-    if _mesh(sys_) is not None:
-        if precond == "gmg":
-            return SlabGalerkinMGPreconditioner.from_system(sys_, **opts)
-        raise NotImplementedError(
-            f"precond={precond!r} on X slabs is not ported yet; use 'gmg' "
-            "(the default), 'jacobi' or 'none'")
+    slabs = _mesh(sys_) is not None
     if precond == "gmg":
-        return GalerkinMGPreconditioner.from_system(sys_, **opts)
+        return (SlabGalerkinMGPreconditioner if slabs
+                else GalerkinMGPreconditioner).from_system(sys_, **opts)
     if precond in ("sa", "samg"):
-        return SAMGPreconditioner.from_system(sys_, **opts)
+        return (SlabSAMGPreconditioner if slabs
+                else SAMGPreconditioner).from_system(sys_, **opts)
+    # the Chebyshev polynomial and "mg" take a slab system as it is
     if precond in ("cheby", "chebyshev"):
         return ChebyshevPreconditioner.from_system(sys_, **opts)
     if precond == "mg":

@@ -177,7 +177,7 @@ class OffsetLevel:
 # ---------------------------------------------------------------------------
 
 
-def _probe(apply_cc, shape_c, sup, spacing, dtype, device):
+def _probe(apply_cc, shape_c, sup, spacing, dtype, device, x0: int = 0):
     """The coarse stencil over the symbolic support ``sup``, packed in
     ``order_offsets`` order: ``(packed, ordered_offsets)``.
 
@@ -185,7 +185,12 @@ def _probe(apply_cc, shape_c, sup, spacing, dtype, device):
     column per cell, so c_o(I) = y_{(I+o) mod s}(I).  The cells that a
     phase settles for tap o are themselves a lattice, (phi - o) mod s, so
     each phase writes one strided slice per tap and every coefficient is
-    written exactly once."""
+    written exactly once.
+
+    ``x0``: the global X index of the first plane where ``shape_c`` is an
+    X slab (``solve/slab_sa.py``): the lattice lives in global X
+    coordinates, so plane i of the slab is a lattice plane of phase px
+    where ``(x0 + i) % sx == px``."""
     ordered, _ = order_offsets(sup)
     sx, sy, sz = spacing
     packed = torch.zeros((shape_c[0], len(ordered)) + tuple(shape_c[1:]),
@@ -194,21 +199,26 @@ def _probe(apply_cc, shape_c, sup, spacing, dtype, device):
         for py in range(sy):
             for pz in range(sz):
                 probe = torch.zeros(shape_c, dtype=dtype, device=device)
-                probe[px::sx, py::sy, pz::sz] = 1.0
+                probe[(px - x0) % sx::sx, py::sy, pz::sz] = 1.0
                 y = apply_cc(probe)
                 for t, o in enumerate(ordered):
-                    ix, iy, iz = ((px - o[0]) % sx, (py - o[1]) % sy,
+                    ix, iy, iz = ((px - o[0] - x0) % sx, (py - o[1]) % sy,
                                   (pz - o[2]) % sz)
                     packed[ix::sx, t, iy::sy, iz::sz] = y[ix::sx, iy::sy,
                                                           iz::sz]
     return packed, ordered
 
 
-def _prune(packed, ordered) -> OffsetLevel:
+def _prune(packed, ordered, mesh=None) -> OffsetLevel:
     """Drop offsets whose coefficient array is identically zero (the
     symbolic support over-covers the masked geometry); (0,0,0) always
-    stays.  One host read of the per-offset max|c|."""
-    mx = packed.abs().amax(dim=(0, 2, 3)).tolist()
+    stays.  One host read of the per-offset max|c|; under a ``mesh`` (the
+    rank's slab of the level) the maximum over the ranks, so that every
+    rank keeps the same offsets, one card's."""
+    mx = packed.abs().amax(dim=(0, 2, 3))
+    if mesh is not None:
+        mx = mesh.allmax(mx)
+    mx = mx.tolist()
     keep = [t for t, o in enumerate(ordered) if mx[t] > 0 or o == (0, 0, 0)]
     if len(keep) < len(ordered):
         packed = packed.index_select(
@@ -217,9 +227,9 @@ def _prune(packed, ordered) -> OffsetLevel:
     return OffsetLevel(packed=packed, offsets=offsets, nn=nn)
 
 
-def _probe_l0(fine, dinv0, free0, sup, spacing, om):
+def _probe_l0(fine, dinv0, free0, sup, spacing, om, x0: int = 0):
     """Level 0 -> 1: Ps^T A Ps with Ps = (I - om D^-1 A) P around the fused
-    fine operator."""
+    fine operator (``x0``: ``_probe``'s)."""
     dtype = dinv0.dtype
     shape_c = tuple(s // 2 for s in dinv0.shape)
     zero = _zero(dinv0)
@@ -233,13 +243,13 @@ def _probe_l0(fine, dinv0, free0, sup, spacing, om):
         stq = q - om * fine.apply(dinv0 * q)
         return _blocksum_axes(stq, _ALL)
 
-    return _probe(apply_cc, shape_c, sup, spacing, dtype, dinv0.device)
+    return _probe(apply_cc, shape_c, sup, spacing, dtype, dinv0.device, x0)
 
 
-def _probe_deep(top, sup, spacing, om, smoothed: bool):
+def _probe_deep(top, sup, spacing, om, smoothed: bool, x0: int = 0):
     """Level k -> k+1 below the fine level: SA with the filtered smoother
     (``top``'s nearest-neighbour taps) when ``smoothed``, else plain
-    PC-Galerkin."""
+    PC-Galerkin (``x0``: ``_probe``'s)."""
     diag = top.diag
     dtype = diag.dtype
     shape_c = tuple(s // 2 for s in diag.shape)
@@ -263,7 +273,7 @@ def _probe_deep(top, sup, spacing, om, smoothed: bool):
             p = torch.where(free, p, zero)
             return _blocksum_axes(top.apply(p), _ALL)
 
-    return _probe(apply_cc, shape_c, sup, spacing, dtype, diag.device)
+    return _probe(apply_cc, shape_c, sup, spacing, dtype, diag.device, x0)
 
 
 def _fine_dinv(fine, dtype):
@@ -272,6 +282,78 @@ def _fine_dinv(fine, dtype):
     dinv = torch.where(free & (diag > 0),
                        1.0 / torch.where(diag > 0, diag, 1.0), _zero(diag))
     return dinv, free
+
+
+def _half(shape) -> tuple:
+    return tuple(s // 2 for s in shape)
+
+
+def _depth(shape, max_levels: int) -> int:
+    """How many probed levels ``SAMGPreconditioner.from_system`` builds
+    below a fine level of ``shape``: level 1 wherever the volume coarsens,
+    then more while it coarsens and ``max_levels`` allows."""
+    if not _can_coarsen(shape):
+        return 0
+    n, shape = 1, _half(shape)
+    while n < max_levels - 1 and _can_coarsen(shape):
+        n, shape = n + 1, _half(shape)
+    return n
+
+
+# level 1's symbolic support: P^T (S A S) P for the 7-point fine operator
+_SUPPORT_1 = _coarsen_support(_minkowski(_minkowski(_l1_ball(1), _l1_ball(1)),
+                                         _l1_ball(1)))
+
+
+def _deep_support(cur_sup, smoothed: bool):
+    """The symbolic support of the level below one with offsets
+    ``cur_sup``: SA with the FILTERED (27-pt) smoother when ``smoothed``
+    (measured identical quality, and it keeps the next support r_inf <=
+    2), else plain PC-Galerkin."""
+    if smoothed:
+        smo_sup = _nn_filter(cur_sup)
+        return _coarsen_support(
+            _minkowski(_minkowski(smo_sup, cur_sup), smo_sup))
+    return _coarsen_support(cur_sup)
+
+
+def _next_level(top, k: int, shape, periodic, sa_depth: int, om,
+                x0: int = 0, mesh=None) -> OffsetLevel:
+    """Level k+1 probed below level k >= 1 (``top``, of global ``shape``);
+    ``x0`` and ``mesh`` where ``top`` is an X slab (``_probe``,
+    ``_prune``)."""
+    smoothed = k < sa_depth
+    sup = _deep_support(top.offsets, smoothed)
+    spacing = _spacing(sup, shape, periodic)
+    return _prune(*_probe_deep(top, sup, spacing, om, smoothed, x0), mesh)
+
+
+def _build_levels(fine, dinv0, free0, shape, periodic, depth: int,
+                  sa_depth: int, om) -> list:
+    """The ``depth`` probed levels below the fine level (one device)."""
+    levels = []
+    if depth:
+        # --- level 0 -> 1: SA around the fused fine operator -----------
+        spacing = _spacing(_SUPPORT_1, shape, periodic)
+        levels.append(_prune(*_probe_l0(fine, dinv0, free0, _SUPPORT_1,
+                                        spacing, om)))
+        shape = _half(shape)
+    # --- deeper levels ----------------------------------------------------
+    while len(levels) < depth:
+        levels.append(_next_level(levels[-1], len(levels), shape, periodic,
+                                  sa_depth, om))
+        shape = _half(shape)
+    return levels
+
+
+def _cast_levels(levels, coeff_dtype):
+    """Downcast AFTER the whole hierarchy is built: probing deeper levels
+    through an already-quantised parent would compound the rounding; one
+    final cast only quantises the stored operator."""
+    if coeff_dtype in ("auto", None):
+        return list(levels)
+    return [dataclasses.replace(l, packed=l.packed.to(coeff_dtype))
+            for l in levels]
 
 
 # ---------------------------------------------------------------------------
@@ -321,50 +403,12 @@ class SAMGPreconditioner:
         quantised, but fixed, hence still SPD, cycle)."""
         fine = MGLevel(code=system.code, w=system.w,
                        periodic=system.periodic)
-        dtype = system.r0_b.dtype
-        dinv0, free0 = _fine_dinv(fine, dtype)
+        dinv0, free0 = _fine_dinv(fine, system.r0_b.dtype)
         shape = tuple(system.code.shape)
-        periodic = system.periodic
         om = float(kw.pop("om_sa", OM_SA))
-        if coeff_dtype == "auto":
-            coeff_dtype = None
-
-        levels = []
-        # --- level 0 -> 1: SA around the fused fine operator -------------
-        sup0 = _l1_ball(1)
-        cur_sup = _coarsen_support(_minkowski(_minkowski(sup0, sup0), sup0))
-        if _can_coarsen(shape):
-            spacing = _spacing(cur_sup, shape, periodic)
-            lvl = _prune(*_probe_l0(fine, dinv0, free0, cur_sup, spacing, om))
-            levels.append(lvl)
-            cur_sup = lvl.offsets
-            shape = tuple(s // 2 for s in shape)
-
-        # --- deeper levels ------------------------------------------------
-        while len(levels) < max_levels - 1 and _can_coarsen(shape):
-            top = levels[-1]
-            smoothed = len(levels) < sa_depth
-            if smoothed:
-                # SA with the FILTERED (27-pt) smoother: measured identical
-                # quality and keeps the next support r_inf <= 2
-                smo_sup = _nn_filter(cur_sup)
-                nxt_sup = _coarsen_support(
-                    _minkowski(_minkowski(smo_sup, cur_sup), smo_sup))
-            else:
-                nxt_sup = _coarsen_support(cur_sup)
-            spacing = _spacing(nxt_sup, shape, periodic)
-            lvl = _prune(*_probe_deep(top, nxt_sup, spacing, om, smoothed))
-            levels.append(lvl)
-            cur_sup = lvl.offsets
-            shape = tuple(s // 2 for s in shape)
-
-        if coeff_dtype is not None:
-            # downcast AFTER the whole hierarchy is built: probing deeper
-            # levels through an already-quantised parent would compound the
-            # rounding; one final cast only quantises the stored operator
-            levels = [dataclasses.replace(l, packed=l.packed.to(coeff_dtype))
-                      for l in levels]
-
+        levels = _build_levels(fine, dinv0, free0, shape, system.periodic,
+                               _depth(shape, max_levels), sa_depth, om)
+        levels = _cast_levels(levels, coeff_dtype)
         return cls(fine=fine, dinv0=dinv0, levels=tuple(levels),
                    sa_depth=int(sa_depth), omega=float(omega), om_sa=om,
                    **kw)

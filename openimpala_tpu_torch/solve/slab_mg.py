@@ -1,7 +1,10 @@
-"""The default Galerkin multigrid cycle on X slabs (the decomposed
-counterpart of ``preconditioners.GalerkinMGPreconditioner``; in the JAX
-package GSPMD partitions the same cycle, ``tests/test_parallel.py::
-test_sharded_galerkin_mg_matches_single_device``).
+"""The default Galerkin multigrid cycle and the rediscretised ``"mg"``
+cycle on X slabs (the decomposed counterparts of ``preconditioners.
+GalerkinMGPreconditioner`` and ``MultigridPreconditioner``; in the JAX
+package GSPMD partitions the same cycles, ``tests/test_parallel.py::
+test_sharded_galerkin_mg_matches_single_device``).  The rules below are
+the default cycle's; ``SlabMultigridPreconditioner`` keeps the gather
+rule and takes its depth from ``follow_depth``.
 
 The hierarchy's schedule is the single-device one, decided on the global
 shape as the user gave it: where the mesh pads X with inactive planes
@@ -36,13 +39,18 @@ import dataclasses
 
 import torch
 
-from ..ops.stencil import StencilSystem, decode_code, slab_stencil
-from ..parallel.halo import halo_exchange_x
+from ..ops.stencil import StencilSystem, code_slab, decode_code, slab_stencil
+from ..parallel.halo import halo_exchange_x, pad_x
 from .preconditioners import (
     ConductanceLevel,
     GalerkinMGPreconditioner,
+    MGLevel,
+    MultigridPreconditioner,
+    _coarsen_free,
     fine_conductances,
     galerkin_coarsen,
+    mg_code,
+    mg_depth,
 )
 
 
@@ -83,14 +91,6 @@ class SlabMGLevel:
         return self._k1("restrict", x, r)
 
 
-def _pad1(t, lo=None):
-    """``t`` with one plane on each side of X: ``lo`` (or 0) before, 0
-    after."""
-    z = torch.zeros((1,) + tuple(t.shape[1:]), dtype=t.dtype,
-                    device=t.device)
-    return torch.cat([z if lo is None else lo, t, z]).contiguous()
-
-
 @dataclasses.dataclass(frozen=True)
 class SlabConductanceLevel:
     """A Galerkin coarse level on a slab: ``diag`` (the slab's, for the
@@ -109,8 +109,8 @@ class SlabConductanceLevel:
     def from_slab(cls, lvl: ConductanceLevel, mesh):
         seam = halo_exchange_x(lvl.cx, True, mesh)[:1]  # previous rank's
         return cls(diag=lvl.diag, mesh=mesh, padded=ConductanceLevel(
-            diag=_pad1(lvl.diag), cx=_pad1(lvl.cx, seam), cy=_pad1(lvl.cy),
-            cz=_pad1(lvl.cz)))
+            diag=pad_x(lvl.diag), cx=pad_x(lvl.cx, lo=seam),
+            cy=pad_x(lvl.cy), cz=pad_x(lvl.cz)))
 
     @property
     def free(self):
@@ -124,7 +124,7 @@ class SlabConductanceLevel:
 
     def sweep(self, x, r, omega: float):
         xp = halo_exchange_x(x, True, self.mesh)
-        return self.padded.sweep(xp, _pad1(r), omega)[1:-1]
+        return self.padded.sweep(xp, pad_x(r), omega)[1:-1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,6 +137,36 @@ class _GatheredLevel:
 
 def _slab_of(t, mesh, xloc: int):
     return t[mesh.rank * xloc:(mesh.rank + 1) * xloc]
+
+
+class GatheredCycle:
+    """The slab cycles' hand-off (a mixin before the single-device class):
+    at level ``gather`` the residual is gathered from every rank, every
+    rank runs the rest of the cycle on the global levels (``glob``, the
+    single-device class, so the same arithmetic) and keeps its slab of
+    the correction."""
+
+    def _vcycle(self, idx: int, r):
+        if idx == self.gather:
+            e = self.glob._vcycle(idx, self.mesh.all_gather_x(r))
+            return _slab_of(e, self.mesh, r.shape[0])
+        return super()._vcycle(idx, r)
+
+
+def follow_depth(system, depth_of) -> int:
+    """The depth of a hierarchy that halves every axis at every level
+    (``depth_of(shape)``, SA's and ``mg``'s rule) on the slab system's
+    global shape: the original extent's where the mesh pads X and the
+    padded extent halves wherever the original does (its padded planes
+    are then dead cells of every level), else the padded shape's own."""
+    xloc, Y, Z = (int(v) for v in system.code.shape)
+    X = xloc * system.mesh.size
+    depth = depth_of((system.x_extent or X, Y, Z))
+    for _ in range(depth):
+        if X % 2:
+            return depth_of((xloc * system.mesh.size, Y, Z))
+        X //= 2
+    return depth
 
 
 def _x_pairs(schedule, X: int) -> bool:
@@ -165,7 +195,7 @@ def gather_level(x_local: int, schedule, transfer: str = "pc") -> int:
 
 
 @dataclasses.dataclass(frozen=True)
-class SlabGalerkinMGPreconditioner(GalerkinMGPreconditioner):
+class SlabGalerkinMGPreconditioner(GatheredCycle, GalerkinMGPreconditioner):
     """``GalerkinMGPreconditioner`` on X slabs (module docstring): levels
     below ``gather`` are this rank's slabs, levels from ``gather`` on are
     global and run by ``glob``, a ``GalerkinMGPreconditioner`` of the same
@@ -234,9 +264,54 @@ class SlabGalerkinMGPreconditioner(GalerkinMGPreconditioner):
                    + (None,) * (len(glevels) - 1),
                    mesh=mesh, glob=glob, gather=g, **kw)
 
-    def _vcycle(self, idx: int, r):
-        if idx == self.gather:
-            # every rank runs the rest of the cycle on the global level
-            e = self.glob._vcycle(idx, self.mesh.all_gather_x(r))
-            return _slab_of(e, self.mesh, r.shape[0])
-        return super()._vcycle(idx, r)
+
+@dataclasses.dataclass(frozen=True)
+class SlabMultigridPreconditioner(GatheredCycle, MultigridPreconditioner):
+    """``MultigridPreconditioner`` (``precond="mg"``) on X slabs: every
+    sharded level is a ``SlabMGLevel`` with its own ``code_halo``, so K1
+    runs on each of them; a coarse level's free set is coarsened on the
+    rank (X pairs inside the slab) and its code rediscretised on the slab
+    (``pack_code_for`` with the mesh: one exchange of the free planes
+    across the seams).  Levels stay sharded while X pairs inside a slab;
+    from the first level whose coarsening is not rank-local, and in any
+    case at the coarsest, the cycle is gathered (``GatheredCycle``; the
+    rule of the module docstring).  The depth follows ``follow_depth``:
+    a padded X takes the original extent's depth where it can."""
+
+    mesh: object = None
+    glob: MultigridPreconditioner = None
+    gather: int = 0
+
+    @classmethod
+    def from_system(cls, system, max_levels: int = 10, **kw):
+        mesh, periodic = system.mesh, system.periodic
+        xloc = int(system.code.shape[0])
+        depth = follow_depth(system, lambda s: mg_depth(s, max_levels))
+        g = gather_level(xloc, ((0, 1, 2),) * depth)
+        free, w = system.free, system.w
+        levels = [SlabMGLevel(code=system.code, code_halo=system.code_halo,
+                              w=w, periodic=periodic, mesh=mesh)]
+        for _ in range(1, g):
+            free, w = _coarsen_free(free), tuple(wi / 4.0 for wi in w)
+            code = mg_code(free, w, periodic, mesh)
+            levels.append(SlabMGLevel(code=code, code_halo=code_slab(code),
+                                      w=w, periodic=periodic, mesh=mesh))
+        if g == 0:
+            glevels = [MGLevel(code=mesh.all_gather_x(system.code), w=w,
+                               periodic=periodic)]
+            gfree = glevels[0].free
+        else:
+            free, w = _coarsen_free(free), tuple(wi / 4.0 for wi in w)
+            gfree = mesh.all_gather_x(free)
+            glevels = [MGLevel(code=mg_code(gfree, w, periodic), w=w,
+                               periodic=periodic)]
+        while g + len(glevels) - 1 < depth:  # levels g .. depth, global
+            gfree, w = _coarsen_free(gfree), tuple(wi / 4.0 for wi in w)
+            glevels.append(MGLevel(code=mg_code(gfree, w, periodic), w=w,
+                                   periodic=periodic))
+        glob = MultigridPreconditioner(levels=(None,) * g + tuple(glevels),
+                                       **kw)
+        if g:  # level g's slab masks the residual level g - 1 restricts
+            levels += [_GatheredLevel(free=free)] + [None] * (depth - g)
+        return cls(levels=tuple(levels), mesh=mesh, glob=glob, gather=g,
+                   **kw)
