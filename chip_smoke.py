@@ -10,7 +10,9 @@ Phases (each failure exits non-zero and prints no result line):
                solver warm-up's thread (``solve/warmup.py``), started
                before the volume is made and joined here (its build, load,
                launch and join seconds; ptxas register and spill report,
-               kept beside each library);
+               kept beside each library); every name of the package
+               surface (each subpackage's ``__all__`` and the root's)
+               must resolve;
 2. kernels   - every K1 mode (matvec, matvec+dot, resid, sweep, restrict)
                in float32 and float64 and both K2 modes, held against their
                plain PyTorch versions on odd, restrict-eligible, periodic and
@@ -97,6 +99,9 @@ Phases (each failure exits non-zero and prints no result line):
                (``EAGER_RECORD``) are printed beside.  The CLI path's
                FGMRES stays eager (no capture, no twin), and its early
                warm-up must start no thread: the kernels are loaded.
+               ``main[iso]`` takes the handle of ``prime_solver``, called
+               with the JAX CLI's keywords and ``mesh="auto"`` (None: the
+               kernels are loaded, so it must start no thread).
                Last, ``main[direct]``: ``tortuosity_direct`` on a 48^3
                blobs volume (porosity 0.6, X, eps 1e-6), each check a
                replay of one graph, held against the JAX package's value
@@ -117,7 +122,10 @@ Phases (each failure exits non-zero and prints no result line):
                both K2 modes, no plain version on a CUDA tensor; per rank
                the wall, the steps, the peak memory, the halo exchanges
                and their bytes, the gathers and sums, the percolation
-               method.  Then each rank holds K1 (every mode, the fused dot)
+               method.  Each rank's ``volume_fraction_counts(local=True)``
+               of its slab (no collective): the four pairs must sum to the
+               mesh-reduced pair, whose total is the volume's cells.  Then
+               each rank holds K1 (every mode, the fused dot)
                against its plain form on its ghost-padded slab of that
                system (``restrict`` pairing the slab's planes at the seam
                offset of the slab layout) and K2 (both modes) on the
@@ -824,6 +832,35 @@ def phase_card(warm):
     t0 = time.perf_counter()
     lib = native.require_lib()
     log(f"native library {lib._name} in {time.perf_counter() - t0:.1f} s")
+    _require_surface()
+
+
+# the subpackages whose ``__all__`` mirrors the JAX package's
+# (``tests/test_torch_surface.py`` holds the lists against it)
+SURFACE = ("io", "ops", "parallel", "props", "solve", "utils")
+SURFACE_ROOT = ("ops", "parallel", "props", "solve", "volume_fraction",
+                "tortuosity", "effective_diffusivity", "deff_tensor")
+
+
+def _require_surface():
+    """Every name of every subpackage's ``__all__``, and the root's,
+    resolves on this machine."""
+    import importlib
+
+    import openimpala_tpu_torch as root
+
+    missing = [n for n in SURFACE_ROOT if not hasattr(root, n)]
+    count = len(SURFACE_ROOT)
+    for sub in SURFACE:
+        pkg = importlib.import_module(f"openimpala_tpu_torch.{sub}")
+        names = getattr(pkg, "__all__", ())
+        require(names, f"card: openimpala_tpu_torch.{sub} has no __all__")
+        missing += [f"{sub}.{n}" for n in names if not hasattr(pkg, n)]
+        count += len(names)
+    require(not missing, f"card: names of the package surface do not "
+                         f"resolve: {missing}")
+    log(f"package surface: {count} names of the root and "
+        f"{len(SURFACE)} subpackages resolve")
 
 
 def phase_kernels(chk, seed):
@@ -1149,11 +1186,12 @@ def _require_twin(label, got, want, counts, twin_counts, hists=None):
                       f"graphed run and its eager twin: {diff}")
 
 
-def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None):
-    """One ``tortuosity`` call (``opts``: its ``precond_opts``), counted
-    on its own.  Where "auto" sends the percolation to the card, the device
-    fill must have run; ``host_mask``: the host's mask of this volume, which
-    the run's must equal."""
+def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None,
+               warm=None):
+    """One ``tortuosity`` call (``opts``: its ``precond_opts``; ``warm``:
+    its ``warm=`` handle), counted on its own.  Where "auto" sends the
+    percolation to the card, the device fill must have run; ``host_mask``:
+    the host's mask of this volume, which the run's must equal."""
     from openimpala_tpu_torch import tortuosity
     from openimpala_tpu_torch.ops import stencil_cuda as sc
     from openimpala_tpu_torch.ops.floodfill import auto_method
@@ -1165,7 +1203,8 @@ def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None):
         t0 = time.perf_counter()
         res = tortuosity(vol, 1, "X", eps=1e-9, dx=dx, precond=precond,
                          precond_opts=opts, device="cuda", timings=timings,
-                         return_fields=True, return_history=True)
+                         return_fields=True, return_history=True,
+                         warm=warm)
         wall = time.perf_counter() - t0
     counts, plain = dict(sc.launches), dict(sc.plain_on_cuda)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1763,6 +1802,22 @@ def _log_record(label, run, edge):
         f"{run.get('twin_wall_s', float('nan')):.3f}")
 
 
+def _prime_iso(vol, dx, precond):
+    """``prime_solver`` with the JAX CLI's keywords
+    (``openimpala_tpu/diffusion.py``'s call) and ``mesh="auto"``: its
+    handle, None here, since the warm-up thread of the card phase loaded
+    every kernel."""
+    from openimpala_tpu_torch.props.tortuosity import prime_solver
+
+    handle = prime_solver(vol.shape, "X", vlo=-1.0, vhi=1.0, method="cg",
+                          precond=precond, inner_dtype=torch.float32,
+                          eps=1e-9, dx=dx, extra_dirs=(), mesh="auto")
+    log(f"main[iso] prime_solver(..., mesh='auto'): handle {handle!r}")
+    require(handle is None, "main[iso]: prime_solver started a warm-up "
+                            "thread though every kernel is loaded")
+    return handle
+
+
 def phase_main(vol, n, host_mask):
     """Drive each main path on its own: the counts are zeroed just before
     its call and read just after.  ``host_mask``: the host's X mask of
@@ -1777,6 +1832,9 @@ def phase_main(vol, n, host_mask):
             run = _drive_option(label, vol, n, dx, precond, host_mask, opts)
         elif kind == "cli":
             run = _drive_cli(label, vol, n)
+        elif kind == "tau" and label == "iso":
+            run = _drive_tau(label, vol, n, dx, precond, host_mask,
+                             warm=_prime_iso(vol, dx, precond))
         elif kind == "tau":
             run = _drive_tau(label, vol, n, dx, precond, host_mask)
         elif kind == "deff":
@@ -2097,22 +2155,33 @@ def _sharded_rank(mesh, raw_path, n, small, solver_vols):
     from openimpala_tpu_torch.ops.stencil import (
         make_cell_problem_system, make_tortuosity_system)
     from openimpala_tpu_torch.parallel.mesh import shard_volume
+    from openimpala_tpu_torch.props.volume_fraction import (
+        volume_fraction_counts)
 
     dev = mesh.device
     out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
            "device": str(dev), "staged": mesh.staged}
     timings = {}
 
+    held = {}
+
     def main_call():
         slab, shape = threshold_sharded(RawReader(raw_path, n, n, n,
                                                   "UINT8"), 0.5, mesh)
         out["slab"] = tuple(slab.shape)
+        held["slab"] = slab
         return tortuosity(slab, 1, "X", eps=1e-9, mesh=mesh,
                           original_shape=shape, device=dev,
                           timings=timings, return_fields=True)
 
     res, out["main"] = _rank_tau(main_call, mesh)
     out["main"]["step_s"] = timings
+    # the reference's skip-the-reduction volume fraction on the main slab
+    slab = held.pop("slab")
+    out["vf"] = {"local": volume_fraction_counts(slab, 1, mesh=mesh,
+                                                 local=True),
+                 "reduced": volume_fraction_counts(slab, 1, mesh=mesh)}
+    del slab
     flow = make_tortuosity_system(res.active, 0, -1.0, 1.0,
                                   dtype=torch.float32, mesh=mesh)
     del res
@@ -2281,6 +2350,18 @@ def phase_sharded(chk, vol, n, runs):
                     chk.max_err.get(f"{name}.slab", 0.0), e)
         launches.update(_require_sharded_deff(out, ranks[0]["deff"],
                                               runs["deff"]))
+    pairs = [tuple(out["vf"]["local"]) for out in ranks]
+    reduced = tuple(ranks[0]["vf"]["reduced"])
+    log(f"sharded[vf] volume_fraction_counts(local=True) per rank "
+        f"{pairs}, summed {tuple(map(sum, zip(*pairs)))}, mesh-reduced "
+        f"{reduced}")
+    require(tuple(map(sum, zip(*pairs))) == reduced,
+            f"sharded[vf]: the ranks' local pairs {pairs} do not sum to the "
+            f"reduced pair {reduced}")
+    require(all(tuple(out["vf"]["reduced"]) == reduced for out in ranks),
+            "sharded[vf]: the ranks' reduced pairs differ")
+    require(reduced[1] == n ** 3, f"sharded[vf]: total {reduced[1]} is not "
+                                  f"{n}^3")
     m = ranks[0]["main"]
     rel = _require_sharded_tau("main", m, iso["tau"], iso["active_vf"],
                                iso["iterations"])

@@ -12,8 +12,10 @@ unless the caller passes ``device="cpu"``.
 
 __version__ = "0.1.0"
 
+from . import ops, parallel, props, solve  # noqa: F401
 from .props.effective_diffusivity import (  # noqa: F401
     EffectiveDiffusivityResult,
+    deff_tensor,
     effective_diffusivity,
 )
 from .props.rev import rev_study  # noqa: F401

@@ -9,18 +9,34 @@ beyond numpy; compressed TIFFs need PIL and HDF5 needs h5py, each imported
 only where it is used.
 """
 
-from .cathode import (  # noqa: F401
+from .cathode import (
     CathodeParams,
     write_dandeliion_parameters,
     write_pybamm_parameters,
 )
-from .dat import DatReader  # noqa: F401
-from .hdf5 import HDF5Reader  # noqa: F401
-from .ingest import PAD_FILL, threshold_sharded  # noqa: F401
-from .raw import RawDataType, RawReader  # noqa: F401
-from .tiff import TiffReader  # noqa: F401
-from .writers import (  # noqa: F401
+from .dat import DatReader
+from .hdf5 import HDF5Reader
+from .ingest import PAD_FILL, threshold_sharded
+from .raw import RawDataType, RawReader
+from .tiff import TiffReader
+from .writers import (
     read_any,
     write_results_txt,
     write_volume_hdf5_xdmf,
 )
+
+__all__ = [
+    "threshold_sharded",
+    "PAD_FILL",
+    "TiffReader",
+    "HDF5Reader",
+    "DatReader",
+    "RawReader",
+    "RawDataType",
+    "write_results_txt",
+    "write_volume_hdf5_xdmf",
+    "read_any",
+    "CathodeParams",
+    "write_dandeliion_parameters",
+    "write_pybamm_parameters",
+]

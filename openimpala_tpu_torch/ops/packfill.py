@@ -211,24 +211,30 @@ def _max_rounds(o) -> int:
     return int(o.shape[0] * 32 + o.shape[1] + o.shape[2]) + 2
 
 
-def packed_fill(o, r, max_rounds: int | None = None):
+def _changed(new, old) -> bool:
+    return not torch.equal(new, old)
+
+
+def packed_fill(o, r, max_rounds: int | None = None,
+                carry_in_fn=_default_carry_in, changed_fn=_changed):
     """Fill rounds to the fixed point (the reach stops changing) or to
-    ``max_rounds``.  One host read per round: the change test.  Returns
+    ``max_rounds``.  One host read per round: the change test.
+    ``carry_in_fn`` resolves the X sweeps' word-level carry (as in
+    ``fill_round``); ``changed_fn(new, old) -> bool`` is the change test
+    (a sharded fill's cross the ranks).  Where the JAX package's
+    ``changed_fn`` reduces the elementwise change mask ``new != old``,
+    this one takes both word volumes, as ``_double_fill``'s does.  Returns
     ``(reach, rounds)``."""
     if max_rounds is None:
         max_rounds = _max_rounds(o)
     rounds = 0
     changed = True
     while changed and rounds < max_rounds:
-        new = fill_round(o, r)
-        changed = not torch.equal(new, r)
+        new = fill_round(o, r, carry_in_fn)
+        changed = changed_fn(new, r)
         r = new
         rounds += 1
     return r, rounds
-
-
-def _changed(new, old) -> bool:
-    return not torch.equal(new, old)
 
 
 def _double_fill(o, seeds_lo, outlet_seeds_fn, max_rounds: int,

@@ -95,6 +95,13 @@ def neighbor_count_axes(active, periodic, mesh=None):
     return tuple(counts)
 
 
+def neighbor_count(active, periodic, mesh=None):
+    """Total active-neighbour count (0..6) per cell, int8; under a
+    ``mesh``, of this rank's slab."""
+    cx, cy, cz = neighbor_count_axes(active, periodic, mesh)
+    return cx + cy + cz
+
+
 def _minus_one_bf16(device):
     return torch.full((), -1.0, dtype=torch.bfloat16, device=device)
 
@@ -445,6 +452,11 @@ class StencilSystem:
             return slab_stencil("matvec", x, None, self.code_halo, self.w,
                                 self.periodic, self.mesh)
         return apply_code(x, self.code, self.w, self.periodic)
+
+    def apply_full(self, x):
+        """``apply`` under the JAX package's other name: the operator
+        already reads the neighbours from the full array."""
+        return self.apply(x)
 
     def apply_with_dot(self, x):
         """``(A x, <x, A x>)``; on a slab the dot is summed over the

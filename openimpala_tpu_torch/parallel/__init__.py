@@ -3,13 +3,13 @@
 slab), ``halo`` (ghost planes), ``multihost`` (start-up) and ``spawn``
 (several ranks on one machine, for tests and checks)."""
 
-from . import multihost  # noqa: F401
-from .halo import (  # noqa: F401
+from . import multihost
+from .halo import (
     halo_exchange_x,
     pad_halo,
     slab_stencil_apply,
 )
-from .mesh import (  # noqa: F401
+from .mesh import (
     AXIS,
     Mesh,
     make_mesh,
@@ -17,3 +17,16 @@ from .mesh import (  # noqa: F401
     shard_volume,
     slab_range,
 )
+
+__all__ = [
+    "multihost",
+    "make_mesh",
+    "shard_volume",
+    "halo_exchange_x",
+    "pad_halo",
+    "slab_stencil_apply",
+    "AXIS",
+    "Mesh",
+    "resolve_mesh",
+    "slab_range",
+]

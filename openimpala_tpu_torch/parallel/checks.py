@@ -262,6 +262,19 @@ def cli(mesh, inputs, results_root, min_cells=None):
             open(txt).read() if os.path.exists(txt) else None, launched)
 
 
+def vf_local(mesh, phase):
+    """``volume_fraction_counts`` (phase id 1) of this rank's slab of
+    ``phase``, X padded to the mesh with ``PAD_FILL`` as the ingest pads:
+    the rank's own pair (``local=True``) and the pair summed over the
+    ranks."""
+    from ..io import PAD_FILL
+    from ..props.volume_fraction import volume_fraction_counts
+
+    slab = _slab(mesh, pad_volume_to(phase, mesh.size, PAD_FILL))
+    return (volume_fraction_counts(slab, 1, mesh=mesh, local=True),
+            volume_fraction_counts(slab, 1, mesh=mesh))
+
+
 def lanes_gate(mesh, cells):
     """The ranks sharing this rank's device, and ``use_lanes`` under the
     mesh for each global cell count of ``cells``."""

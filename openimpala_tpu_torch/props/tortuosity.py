@@ -108,8 +108,9 @@ def prime_solver(shape, direction, *, vlo: float = -1.0, vhi: float = 1.0,
                  dx=(1.0, 1.0, 1.0), method: str = "cg",
                  precond: str = "auto", precond_opts: dict = None,
                  inner_dtype=torch.float32, dtype=torch.float64,
-                 eps: float = 1e-9, percolation_method: str = "auto",
-                 extra_dirs=(), device=None):
+                 eps: float = 1e-9, mesh="auto",
+                 percolation_method: str = "auto", extra_dirs=(),
+                 device=None):
     """Start the background build and load of the kernels a flow-through
     solve of ``shape`` along ``direction`` will launch, BEFORE the voxel
     data exists: the CLI calls it at reader-metadata time, so the build
@@ -118,8 +119,9 @@ def prime_solver(shape, direction, *, vlo: float = -1.0, vhi: float = 1.0,
     warm=handle)`` (the same handle to every direction of ``extra_dirs``),
     or None where warming cannot pay: off CUDA, as the JAX package returns
     None off the TPU, or once the kernels are loaded.  ``device``: None
-    means CUDA.  The kernels depend on ``precond`` alone; the other
-    arguments are the JAX package's call shape."""
+    means CUDA.  The kernels depend on ``precond`` alone (a solve on slabs
+    launches the same ones); the other arguments, ``mesh`` among them, are
+    the JAX package's call shape."""
     return warmup.maybe_start(precond, device=device)
 
 

@@ -94,12 +94,14 @@ def _accumulate(z_total, scale, z):
     return z_total + scale * z.to(z_total.dtype)
 
 
-def make_precond(sys_, precond, opts=None):
+def make_precond(sys_, precond, opts=None, method: str = "cg"):
     """``"auto"`` (= ``"gmg"``), ``"gmg"``, ``"mg"``, ``"sa"`` (=
     ``"samg"``), ``"cheby"`` (= ``"chebyshev"``), ``"jacobi"`` or
     ``"none"``; any other name raises.  A preconditioner that is already built (a callable
     ``r -> z``) is returned as it is.  A slab system (one with a ``mesh``)
-    gets each one's slab form."""
+    gets each one's slab form.  ``method`` (the Krylov method) is the JAX
+    package's call shape and is not read: every preconditioner serves CG
+    and FGMRES alike."""
     opts = opts or {}
     if precond is not None and not isinstance(precond, str):
         return precond

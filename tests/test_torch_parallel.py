@@ -96,6 +96,18 @@ PERC = {  # shape, direction, original shape (the padded-outlet case)
 }
 
 
+# X of the volumes of volume_fraction_counts(local=True): slabs of 6, and
+# 22 padded to 24 (the last slab holds 4 planes and 2 of PAD_FILL)
+VF_LOCAL_X = (24, 22)
+
+
+def _vf_volume(blob_phase, x):
+    """conftest's blob volume (20 X planes) with its first planes repeated
+    to ``x`` planes, as ``tests/test_props.py`` makes its X = 24 volume."""
+    b = np.asarray(blob_phase, np.int8)
+    return np.concatenate([b, b[:x - b.shape[0]]], axis=0)
+
+
 def _perc_phase(name):
     shape, _, orig = PERC[name]
     rng = np.random.default_rng(11)
@@ -128,7 +140,7 @@ def _files(tmp):
     return raw, tif
 
 
-def _jobs(tmp):
+def _jobs(tmp, blob_phase):
     jobs = [("halo", (HALO_X, False)), ("halo", (HALO_X, True))]
     for name, shape in MATVEC.items():
         jobs.append(("matvec", (_mask(2, shape), _field(3, shape), 0,
@@ -145,6 +157,8 @@ def _jobs(tmp):
                             {"eps": 1e-9})))
     for name, (_, d, orig) in PERC.items():
         jobs.append(("percolation", (_perc_phase(name), d, orig)))
+    for x in VF_LOCAL_X:
+        jobs.append(("vf_local", (_vf_volume(blob_phase, x),)))
     return jobs
 
 
@@ -152,9 +166,9 @@ class _Results:
     """The world's results, keyed by case; the world runs in the
     background until a test first asks."""
 
-    def __init__(self, tmp):
+    def __init__(self, tmp, blob_phase):
         self.files = _files(tmp)
-        self.jobs = _jobs(tmp)
+        self.jobs = _jobs(tmp, blob_phase)
         self.world = spawn.World(
             "openimpala_tpu_torch.parallel.checks:batch", N,
             args=(self.jobs,), device="cpu", timeout=WORLD_TIMEOUT,
@@ -170,8 +184,8 @@ class _Results:
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    res = _Results(tmp_path_factory.mktemp("torch_parallel"))
+def world(tmp_path_factory, blob_phase):
+    res = _Results(tmp_path_factory.mktemp("torch_parallel"), blob_phase)
     yield res
     if res._by_rank is None:  # nobody asked: still end the ranks
         res.world.wait()
@@ -435,6 +449,58 @@ def test_sharded_percolation_bit_for_bit(world, index, name):
         jax_pack_x(jnp.asarray(want))))
     np.testing.assert_array_equal(_cat([c for _, c in packed]),
                                   np.asarray(jcounts))
+
+
+# ---------------------------------------------------------------------------
+# volume_fraction_counts(local=True) and prime_solver(mesh=)
+# ---------------------------------------------------------------------------
+
+
+def test_local_volume_fraction_counts_are_jax_shard_entries(world,
+                                                            blob_phase):
+    """X = 24: each rank's own pair is entry ``rank`` of the JAX package's
+    per-shard lists (``tests/test_props.py``'s rule, on 4 devices), and
+    the pairs sum to the mesh-reduced pair."""
+    from openimpala_tpu.props.volume_fraction import (
+        volume_fraction_counts as jax_counts)
+
+    vol = _vf_volume(blob_phase, 24)
+    counts, totals = jax_counts(shard_volume(jnp.asarray(vol), _jax_mesh()),
+                                1, local=True)
+    got = world("vf_local", 0)
+    assert [pair for pair, _ in got] == list(zip(counts, totals))
+    whole = (int((vol == 1).sum()), vol.size)
+    assert [reduced for _, reduced in got] == [whole] * N
+    assert sum(totals) == vol.size
+
+
+def test_local_volume_fraction_counts_leave_out_the_padding(world,
+                                                            blob_phase):
+    """X = 22, padded to 24 with ``PAD_FILL``: the ranks' pairs sum to
+    the whole volume's, the padded planes in neither count."""
+    vol = _vf_volume(blob_phase, 22)
+    got = world("vf_local", 1)
+    whole = (int((vol == 1).sum()), vol.size)
+    pairs = [pair for pair, _ in got]
+    assert tuple(map(sum, zip(*pairs))) == whole
+    assert pairs[-1][1] == 4 * vol.shape[1] * vol.shape[2]
+    assert [reduced for _, reduced in got] == [whole] * N
+
+
+def test_prime_solver_takes_the_jax_cli_call_shape():
+    """The keywords ``openimpala_tpu/diffusion.py`` passes, and
+    ``mesh="auto"``: None off CUDA, as the JAX package's is off the TPU."""
+    from openimpala_tpu.props.tortuosity import prime_solver as jax_prime
+    from openimpala_tpu_torch.props.tortuosity import prime_solver
+
+    kw = dict(vlo=0.0, vhi=1.0, method="cg", precond="auto",
+              inner_dtype=torch.float32, eps=1e-9, dx=(1.0, 1.0, 2.0),
+              extra_dirs=(1, 2), mesh="auto")
+    assert prime_solver((64, 48, 32), 0, device="cpu", **kw) is None
+    if not torch.cuda.is_available():
+        assert prime_solver((64, 48, 32), "X", **kw) is None
+    jkw = dict(kw, inner_dtype=jnp.float32)
+    assert jax_prime((64, 48, 32), 0, **jkw) is None
 
 
 def test_spawn_runs_on_the_card_unless_asked(tmp_path):
