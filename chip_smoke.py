@@ -87,9 +87,12 @@ Phases (each failure exits non-zero and prints no result line):
                must have run, and at the main size its mask must equal the
                host's X mask of the ``perc`` phase.  ``effective_
                diffusivity`` logs whether the lockstep lanes ran (required
-               where ``use_lanes`` admits the volume on this card) and is
-               run again with ``lanes=False``: the tensors must agree to
-               1e-9 and the iterations to 1 per direction.  Every path
+               where the card's rule takes them: ``lanes_pay``, up to
+               128^3, and the memory gate ``use_lanes``) and is run again
+               on the other path: the tensors must agree to 1e-9 and the
+               iterations to 1 per direction.  ``rev_study`` logs the
+               batch choice ``batch="auto"`` makes for its crops, which
+               must be the card's table's (batched up to 112^3).  Every path
                runs its PCG iterations as CUDA graphs, as its entry point
                does (``utils/graphs.py``), logs ``graph: captures=,
                replays=, capture_s=``, and is run again as its eager twin
@@ -190,6 +193,11 @@ Phases (each failure exits non-zero and prints no result line):
                ``effective_diffusivity`` and ``rev_study`` (16 crops of
                64^3), graphed against the eager twin: results, iterations
                and every launch counter equal;
+4d. rules    - ``maxiter`` as a hard cap, at 128^3: ``tortuosity`` with
+               ``maxiter=20`` under ``precond="auto"`` and ``"jacobi"``
+               must stop at exactly 20 iterations, unconverged, tau NaN;
+               ``effective_diffusivity`` with ``maxiter=12``, with and
+               without the lanes, no direction past 12;
 5. parity    - the same call at 64^3 on the GPU and on the CPU:
                ``tortuosity`` with the default and with the ``sa``
                preconditioner, with ``mg`` (in float64, where the
@@ -402,6 +410,10 @@ DIRECT_TWIN_CHECKS = 10
 # the graph check: each of these paths on a 128^3 volume, graphed against
 # its eager twin (result, iterations and every launch counter equal)
 GRAPH_N = 128
+# the rules phase's caps: below what the GRAPH_N^3 solves need (tau 46
+# iterations, each cell problem 16)
+RULES_TAU_MAXITER = 20
+RULES_DEFF_MAXITER = 12
 GRAPH_REV_SAMPLES = 16
 
 
@@ -1524,13 +1536,14 @@ def _drive_cli(label, vol, n):
 
 
 def _drive_deff(label, vol, n, dx, precond):
-    """One ``effective_diffusivity`` call on the whole volume, through the
-    lockstep lanes where ``use_lanes`` admits it on this card (the result's
-    ``lanes``); then the same call with ``lanes=False``, whose tensor and
-    iterations must agree (not counted)."""
+    """One ``effective_diffusivity`` call on the whole volume under
+    ``lanes="auto"``, which must take the path the card's rule names
+    (``lanes_pay``, then the memory gate ``use_lanes``); then the same call
+    forced onto the other path, whose tensor and iterations must agree (not
+    counted)."""
     from openimpala_tpu_torch import effective_diffusivity
     from openimpala_tpu_torch.ops import stencil_cuda as sc
-    from openimpala_tpu_torch.solve.lanes import use_lanes
+    from openimpala_tpu_torch.solve.lanes import lanes_pay, use_lanes
 
     timings = {}
     torch.cuda.empty_cache()
@@ -1546,16 +1559,18 @@ def _drive_deff(label, vol, n, dx, precond):
     gstats = _graph_stats(label)
     peak = torch.cuda.max_memory_allocated()
     routes = _k1_routes()
+    pays = lanes_pay(vol.size, "cuda")
     admits = use_lanes(vol.size, 3, "cg", device="cuda")
     log(f"main[{label}] {n}^3 dx={dx} precond={precond}: "
         f"deff={res.deff.tolist()!r} volume_fraction={res.volume_fraction!r} "
         f"iterations={res.iterations} rel_res={res.rel_res!r} "
         f"converged={res.converged} wall_s={wall:.3f} "
-        f"peak_mem_GB={peak / 1e9:.2f} lanes={res.lanes} "
-        f"(use_lanes admits {vol.size} cells: {admits})")
-    require(res.lanes == admits,
-            f"main[{label}]: lanes ran {res.lanes}, the gate says "
-            f"{admits}")
+        f"peak_mem_GB={peak / 1e9:.2f} lanes={res.lanes} (for {vol.size} "
+        f"cells the lanes pay on the card: {pays}; use_lanes admits them: "
+        f"{admits})")
+    require(res.lanes == (pays and admits),
+            f"main[{label}]: lanes ran {res.lanes}, the card's rule says "
+            f"{pays and admits}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1618,8 +1633,19 @@ def _drive_rev(label, vol, n, dx):
     import openimpala_tpu_torch.solve.batched as pb
     from openimpala_tpu_torch import effective_diffusivity, rev_study
     from openimpala_tpu_torch.ops import stencil_cuda as sc
+    from openimpala_tpu_torch.props.rev import (_resolve_batch,
+                                                auto_batch_max_cells)
 
     size = min(REV_SIZE, n)
+    choice = _resolve_batch("auto", (size,) * 3, REV_SAMPLES, {},
+                            device="cuda")
+    table = size ** 3 <= auto_batch_max_cells("cuda")
+    log(f"main[{label}] batch=\"auto\" for {REV_SAMPLES} crops of {size}^3 "
+        f"on the card: batched={choice} (the card's table: batched up to "
+        f"{auto_batch_max_cells('cuda')} cells a crop)")
+    require(choice == table and choice,
+            f"main[{label}]: batch=\"auto\" chose {choice}, the table says "
+            f"{table}")
     per_dir = []
     solve = pb.batched_cell_problems
 
@@ -2728,6 +2754,42 @@ def phase_graph(seed):
         _require_twin(f"graph {name}", got, want, counts, twin_counts)
 
 
+def phase_rules(seed):
+    """``maxiter`` as a hard cap on the card, through the entry points at
+    GRAPH_N^3 (the default tau there needs 46 iterations, each cell
+    problem 16): ``tortuosity`` with ``maxiter=RULES_TAU_MAXITER`` under
+    ``precond="auto"`` and ``"jacobi"`` must stop at exactly that many
+    iterations, unconverged, tau NaN; ``effective_diffusivity`` with
+    ``maxiter=RULES_DEFF_MAXITER``, through the lanes and the sequential
+    loop, must count no more than that in any direction."""
+    from openimpala_tpu_torch import effective_diffusivity, tortuosity
+
+    vol = make_blobs(GRAPH_N, 0.4, seed)
+    cap = RULES_TAU_MAXITER
+    for precond in ("auto", "jacobi"):
+        res = tortuosity(vol, 1, "X", eps=1e-9, precond=precond,
+                         maxiter=cap, device="cuda")
+        log(f"rules {GRAPH_N}^3 tortuosity precond={precond} maxiter={cap}: "
+            f"iterations={int(res.iterations)} tau={res.value!r} "
+            f"converged={res.converged} rel_res={res.rel_res!r}")
+        require(int(res.iterations) == cap and not res.converged
+                and np.isnan(res.value),
+                f"rules[tau {precond}]: {int(res.iterations)} iterations, "
+                f"converged={res.converged}, tau={res.value!r} under "
+                f"maxiter={cap}")
+    cap = RULES_DEFF_MAXITER
+    for lanes in (True, False):
+        res = effective_diffusivity(vol, 1, eps=1e-9, maxiter=cap,
+                                    lanes=lanes, device="cuda")
+        log(f"rules {GRAPH_N}^3 effective_diffusivity lanes={lanes} "
+            f"maxiter={cap}: iterations={res.iterations} "
+            f"converged={res.converged} rel_res={res.rel_res!r}")
+        require(res.lanes == lanes and all(0 < it <= cap
+                                           for it in res.iterations),
+                f"rules[deff lanes={lanes}]: iterations {res.iterations} "
+                f"under maxiter={cap}")
+
+
 def _both(call):
     """``call("cuda")`` and ``call("cpu")``, and the wall seconds of each."""
     out, secs = [], []
@@ -3354,6 +3416,8 @@ def _main(args, t_start):
             t0 = _phase_done("sharded", t0)
             phase_graph(SEED)
             t0 = _phase_done("graph", t0)
+            phase_rules(SEED)
+            t0 = _phase_done("rules", t0)
             phase_parity(SEED)
             t0 = _phase_done("parity", t0)
             torch.cuda.empty_cache()

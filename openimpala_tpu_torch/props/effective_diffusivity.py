@@ -16,8 +16,9 @@ volume-average
 
 The operator is the same for the three directions (only the RHS carries
 k), so the preconditioner is built once.  The three solves run as lockstep
-lanes of one solve (``solve/lanes.py``) where the memory gate
-``use_lanes`` admits them, else one after the other.
+lanes of one solve (``solve/lanes.py``) where they pay (``lanes_pay``: on
+one card up to the measured size, on the CPU and under a mesh always) and
+the memory gate ``use_lanes`` admits them, else one after the other.
 
 Under a ``mesh`` (``parallel/mesh.py``, every rank running this driver)
 each rank holds an X slab of the periodic cell problems: the X wrap
@@ -47,7 +48,8 @@ from ..ops.stencil import make_cell_problem_system
 from ..parallel.mesh import Mesh, fingerprint, require_same, resolve_mesh
 from ..solve import warmup
 from ..solve.cg import ResidualHistory
-from ..solve.lanes import LaneSystem, solve_system_lanes, use_lanes
+from ..solve.lanes import (LaneSystem, lanes_pay, solve_system_lanes,
+                           use_lanes)
 from ..solve.refine import make_precond, solve_system
 from ..utils.common import count_true, resolve_device
 from ..utils.profiling import phase_timer
@@ -111,7 +113,8 @@ def effective_diffusivity(
     ``lanes``: ``True`` runs the three cell problems as lockstep lanes
     (``solve/lanes.py``; only with ``method`` "cg" or "pcg" and a refined
     ``inner_dtype``, else it raises), ``False`` one after the other,
-    ``"auto"`` as lanes where ``use_lanes`` admits them on the device.
+    ``"auto"`` as lanes where they pay on the device (``lanes_pay``) and
+    ``use_lanes`` admits them.
     ``device``: None means CUDA, and raises where there is none; pass
     ``"cpu"`` to run on the CPU.  ``timings``: optional dict that receives
     the wall seconds of each step, summed over the three directions.
@@ -222,9 +225,10 @@ def effective_diffusivity(
         print(f"  Mesh: {mesh.size} ranks ({mesh.backend}), X slabs of "
               f"{active.shape[0]}")
 
-    ran_lanes = lanes_ok and (lanes is True or (lanes == "auto" and use_lanes(
-        n_total, 3, method, inner_bytes=_itemsize(inner_dtype),
-        outer_bytes=_itemsize(dtype), device=dev, mesh=mesh)))
+    ran_lanes = lanes_ok and (lanes is True or (
+        lanes == "auto" and lanes_pay(n_total, dev, mesh) and use_lanes(
+            n_total, 3, method, inner_bytes=_itemsize(inner_dtype),
+            outer_bytes=_itemsize(dtype), device=dev, mesh=mesh)))
     if ran_lanes:
         chis, iters, rels, convs, hists = _solve_lanes(
             active, eps, maxiter, precond, precond_opts, dx, inner_dtype,

@@ -19,7 +19,9 @@ Same-size crops are independent; ``batch=True`` stacks them and runs the
 three direction solves per crop as lanes of one batched PCG
 (``solve/batched.py``).  The default ``batch="auto"`` decides PER
 SAME-SHAPE GROUP: lockstep lanes pay while a single crop underfills the
-card; a large crop goes to the sequential multigrid solver.
+card; a large crop goes to the sequential multigrid solver
+(``auto_batch_max_cells``: measured on the card, the JAX package's value
+on the CPU).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils.common import resolve_device
 from .effective_diffusivity import effective_diffusivity
 
 
@@ -84,18 +87,35 @@ def _draw_samples(phase, sizes, num_samples, rng, verbose):
     return boxes
 
 
-# auto-batch threshold, in cells per crop.  The value is the JAX package's
-# (kept so that both packages route the same groups the same way); where
-# the crossover between the batched and the sequential solver lies on an
-# H100 has not been measured
+# auto-batch threshold, in cells per crop, on the CPU: the JAX package's
+# value, so that both packages route the same groups the same way
 AUTO_BATCH_MAX_CELLS = 96 ** 3
+# on a CUDA device: the largest crop at which the batched solver was faster
+# than the sequential one that ``batch=False`` runs there (lanes up to
+# 128^3, ``solve/lanes.py::CUDA_LANES_MAX_CELLS``).  Measured with
+# scripts/torch_crossovers.py on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md, PR 13), crops of make_blobs(512, 0.4, 0), medians of 11 calls
+# in turns, seconds batched / sequential with lanes: 64 x 64^3 1.214 /
+# 6.335, 64 x 96^3 3.798 / 7.290, 48 x 112^3 4.557 / 5.848, 32 x 128^3
+# 4.510 / 4.321, 24 x 160^3 6.597 / 4.335 (three calls: 16 x 192^3 7.495
+# / 3.471, 8 x 256^3 9.063 / 2.939)
+CUDA_AUTO_BATCH_MAX_CELLS = 112 ** 3
+
+
+def auto_batch_max_cells(device="cpu") -> int:
+    """The largest crop, in cells, that ``batch="auto"`` batches on
+    ``device``."""
+    if torch.device(device).type == "cuda":
+        return CUDA_AUTO_BATCH_MAX_CELLS
+    return AUTO_BATCH_MAX_CELLS
 
 
 def _resolve_batch(batch, actual, n_group: int,
                    solve_kwargs=None, method: str = "cg",
-                   precond: str = "auto") -> bool:
+                   precond: str = "auto", device="cpu") -> bool:
     """Per-group policy for ``batch="auto"``: batch only when there is more
-    than one same-shape crop and each crop is small.  Callers requesting
+    than one same-shape crop and each crop is small
+    (``auto_batch_max_cells(device)``).  Callers requesting
     the exact float64 path (``inner_dtype=None``), a non-CG Krylov method,
     or an explicit preconditioner stay on the sequential solver: the
     batched solver hard-codes CG + Chebyshev, so "auto" must not silently
@@ -109,7 +129,8 @@ def _resolve_batch(batch, actual, n_group: int,
             return False
         if str(method).lower() not in ("cg", "pcg") or precond != "auto":
             return False
-        return n_group > 1 and math.prod(actual) <= AUTO_BATCH_MAX_CELLS
+        return n_group > 1 and math.prod(actual) <= auto_batch_max_cells(
+            device)
     return bool(batch)
 
 
@@ -156,7 +177,7 @@ def rev_study(
     three cell problems as lanes of one batched program
     (``solve/batched.py``).  ``False`` runs the sequential multigrid solver
     per crop.  ``"auto"`` (default) decides per same-shape group by crop
-    size (``AUTO_BATCH_MAX_CELLS``).  ``device`` (among ``solve_kwargs``):
+    size (``auto_batch_max_cells``).  ``device`` (among ``solve_kwargs``):
     None means CUDA, ``"cpu"`` the CPU.  ``plotfile_dir``: write each
     sample's chi fields there as HDF5 + XDMF (``rev_chi_s<n>_sz<size>``,
     ``Diffusion.cpp:442-447``; needs h5py); the crops then run on the
@@ -174,10 +195,11 @@ def rev_study(
         groups.setdefault(actual, []).append(idx)
 
     results = {}
+    dev = resolve_device(solve_kwargs.get("device"))
     for actual, idxs in groups.items():
         if plotfile_dir is None and _resolve_batch(
                 batch, actual, len(idxs), solve_kwargs, method=method,
-                precond=precond):
+                precond=precond, device=dev):
             from ..solve.batched import batched_deff
 
             crops = np.stack([_crop(phase, boxes[i][2], actual)

@@ -92,7 +92,8 @@ def _batched_probe(it, done):
 
 def _batched_cg(systems, r0, denom, eps, maxiter: int, precond,
                 chunk: int = 25, _graph=None):
-    """Host-chunked batched PCG: z with z0 = 0 per lane.  Returns
+    """Host-chunked batched PCG: z with z0 = 0 per lane, the last chunk
+    cut so that no lane's count passes ``maxiter``.  Returns
     ``(z, iterations (B,), rel_res (B,))``.  ``_graph``: as in
     ``solve/cg.py::_cg_chunked_loop``."""
     B = r0.shape[0]
@@ -111,15 +112,18 @@ def _batched_cg(systems, r0, denom, eps, maxiter: int, precond,
                         state, (denom, torch.full((), float(eps),
                                                   dtype=r0.dtype,
                                                   device=r0.device)))
-        while True:
+        it = 0  # the largest lane count
+        while it < maxiter:
+            n = min(chunk, maxiter - it)
             if holder:
-                (probe,) = holder.run(chunk)
+                (probe,) = holder.run(n)
             else:
-                for _ in range(chunk):
+                for _ in range(n):
                     _batched_step(systems, precond, state, denom, float(eps))
                 (probe,) = _batched_probe(state[4], state[6])
             it_max, all_done = probe.tolist()  # ONE read per chunk
-            if all_done > 0 or int(it_max) >= maxiter:
+            it = int(it_max)
+            if all_done > 0:
                 break
         z, r, p, rz, it, rel, done = holder.state if holder else state
         if holder and holder is _graph:

@@ -133,7 +133,8 @@ def _cg_chunked_loop(system, r0, denom, eps, maxiter: int, precond,
                      chunk: int = 16, verbose: int = 0, history=None,
                      _graph=None):
     """PCG advancing ``chunk`` iterations per host check (see _cg_step);
-    the iteration count may overshoot ``maxiter`` by less than a chunk.
+    the last chunk is cut to what is left of ``maxiter``, so the count
+    never passes it (the JAX package's ``_cg_loop``, ``it < maxiter``).
     On CUDA the iterations replay a CUDA graph (``utils/graphs.py``):
     ``_graph`` a ``ChunkGraph`` serves several calls (the refinement
     rounds of one solve), None makes one for this call."""
@@ -161,18 +162,20 @@ def _cg_chunked_loop(system, r0, denom, eps, maxiter: int, precond,
                         lambda *a: _probe(*a[4:7]),
                         state, (denom, torch.full((), eps, dtype=dtype,
                                                   device=dev)))
-        while True:
+        it = 0
+        while it < maxiter:
+            n = min(chunk, maxiter - it)
             if holder:
-                (probe,) = holder.run(chunk)
+                (probe,) = holder.run(n)
             else:
-                probe = _cg_chunk(system, precond, state, denom, eps, chunk)
+                probe = _cg_chunk(system, precond, state, denom, eps, n)
             it_v, done_v, rel_v = probe.tolist()  # ONE read per chunk
             it = int(it_v)
             if verbose >= 2:
                 print(f"    cg it={it:5d}  rel_res={rel_v:.6e}")
             if history is not None:
                 history.record_inner(it, rel_v)
-            if done_v > 0 or it >= maxiter:
+            if done_v > 0:
                 break
         z, r, p, rz, it, rel, done = holder.state if holder else state
         if holder and holder is _graph:

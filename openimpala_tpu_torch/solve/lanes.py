@@ -28,7 +28,8 @@ iterations run eagerly, one per host read, as the mono loop's do there.
 
 Memory gate (``use_lanes``): lane state is L times the mono solve's; on
 slabs each rank holds its share, on a device it may share with other
-ranks.
+ranks.  On one CUDA card the lanes also have to pay (``lanes_pay``): they
+save host reads and graph captures, not device time.
 """
 
 from __future__ import annotations
@@ -167,9 +168,10 @@ def cg_lanes(lsys: LaneSystem, r0, denom, eps, maxiter: int, precond,
              chunk: int = 16, verbose: int = 0, history=None,
              _graph=None) -> SolveResult:
     """Lockstep PCG on ``(L, ...)`` state, ``chunk`` iterations per host
-    read (the mono loop's 16), z0 = 0.  ``denom`` is per lane (a zero one
-    falls back to ``||r0_i||``, then to 1); ``precond`` None is the
-    identity.  Returns a ``SolveResult`` whose iterations, rel_res and
+    read (the mono loop's 16; the last chunk cut so that the largest lane
+    count never passes ``maxiter``), z0 = 0.  ``denom`` is per lane (a
+    zero one falls back to ``||r0_i||``, then to 1); ``precond`` None is
+    the identity.  Returns a ``SolveResult`` whose iterations, rel_res and
     converged are (L,) tensors.  ``_graph``: as in ``solve/cg.py::
     _cg_chunked_loop``."""
     L = r0.shape[0]
@@ -194,19 +196,21 @@ def cg_lanes(lsys: LaneSystem, r0, denom, eps, maxiter: int, precond,
                         lambda *a: _probe(*a[4:7]),
                         state, (denom, torch.full((), eps, dtype=r0.dtype,
                                                   device=dev)))
-        while True:
+        it = 0  # the largest lane count
+        while it < maxiter:
+            n = min(chunk, maxiter - it)
             if holder:
-                (probe,) = holder.run(chunk)
+                (probe,) = holder.run(n)
             else:
-                probe = _cg_chunk_lanes(lsys, precond, state, denom, eps,
-                                        chunk)
+                probe = _cg_chunk_lanes(lsys, precond, state, denom, eps, n)
             its, dones, rels_v = probe.tolist()  # ONE read per chunk
+            it = int(max(its))
             if verbose >= 2:
                 rels = ", ".join(f"{v:.3e}" for v in rels_v)
-                print(f"    cg-lanes it={int(max(its)):5d}  rel_res=[{rels}]")
+                print(f"    cg-lanes it={it:5d}  rel_res=[{rels}]")
             if history is not None:
-                history.record_inner(int(max(its)), rels_v)
-            if all(d > 0 for d in dones) or int(max(its)) >= maxiter:
+                history.record_inner(it, rels_v)
+            if all(d > 0 for d in dones):
                 break
         z, r, p, rz, it, rel, done = holder.state if holder else state
         if holder and holder is _graph:
@@ -423,3 +427,30 @@ def use_lanes(cells: int, lanes: int, method: str = "cg",
     fits = need / mesh.size < 0.85 * limit / mesh.ranks_on_device()
     refused = mesh.allsum(torch.tensor(int(not fits), device=mesh.device))
     return int(refused) == 0
+
+
+# ``lanes="auto"`` on one CUDA card: the lanes up to the largest volume at
+# which they were faster.  Measured with scripts/torch_crossovers.py on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md, PR 13), make_blobs(n, 0.4, 0):
+# medians of 11 alternating pairs, lanes against the sequential loop, ms,
+# and the larger interquartile range: 32^3 94.3 / 107.5 (14.0), 48^3
+# 81.8 / 99.2 (7.1), 64^3 82.4 / 92.3 (15.0), 80^3 96.8 / 102.4 (6.9),
+# 96^3 94.4 / 112.4 (8.9), 128^3 113.8 / 132.2 (10.3): lower at every size,
+# by more than the spread at 48^3, 96^3 and 128^3 (the lanes save two graph
+# captures and two thirds of the probe reads, not device time).  Three
+# pairs from 256^3 up: 348.3 / 355.1, 989.4 / 1011.0, 2355.3 / 2284.9 ms,
+# ties within the spread, while the lanes' peak is 1.7 times the
+# sequential loop's (512^3: 25.00 against 14.53 GB).
+CUDA_LANES_MAX_CELLS = 128 ** 3
+
+
+def lanes_pay(cells: int, device="cpu", mesh=None) -> bool:
+    """Whether ``lanes="auto"`` may take the lanes for a volume of
+    ``cells`` on ``device`` (the memory gate ``use_lanes`` decides after
+    it): on one CUDA device up to ``CUDA_LANES_MAX_CELLS``; on the CPU and
+    under a mesh always, which leaves the JAX package's rule, the memory
+    gate alone (the CPU is where the port is held to the JAX package; on
+    slabs nothing is measured yet)."""
+    if mesh is not None or torch.device(device).type != "cuda":
+        return True
+    return cells <= CUDA_LANES_MAX_CELLS

@@ -86,8 +86,13 @@ def test_cg_unpreconditioned_and_maxiter():
     np.testing.assert_allclose(got.z.numpy(), np.asarray(want.z),
                                rtol=1e-10, atol=1e-10)
     capped = PC.cg(ps, torch.from_numpy(np.array(r0)), ps.b_norm, 1e-14, 5)
-    assert int(capped.iterations) == 16  # one chunk: overshoot below chunk
+    # maxiter caps the count, as the JAX package's _cg_loop does
+    want = JC._cg_loop(js, r0, js.b_norm, 1e-14, 5,
+                       JP.IdentityPreconditioner())
+    assert int(capped.iterations) == int(want.iterations) == 5
     assert not bool(capped.converged)
+    np.testing.assert_allclose(capped.z.numpy(), np.asarray(want.z),
+                               rtol=1e-10, atol=1e-10)
 
 
 def test_solve_system_refinement_matches_jax():

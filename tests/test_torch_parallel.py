@@ -87,6 +87,10 @@ TAU = {  # shape, direction, dx
     "x_aniso": ((32, 20, 20), 0, (1.0, 1.0, 2.0)),
 }
 TAU_KW = {"eps": 1e-9, "percolation_method": "host"}
+# maxiter cases on slabs (after TAU's, so their indices stay): shape,
+# direction, precond, a cap below what the solve needs
+TAU_MAXITER = {"gmg": ((32, 20, 20), 0, "auto", 3),
+               "jacobi": ((32, 20, 20), 1, "jacobi", 7)}
 PERC = {  # shape, direction, original shape (the padded-outlet case)
     "x": ((256, 12, 10), 0, None),
     "y": ((256, 12, 10), 1, None),
@@ -150,6 +154,9 @@ def _jobs(tmp, blob_phase):
                                 VCYCLE_DIR.get(name, 0), dx, opts)))
     for name, (shape, d, dx) in TAU.items():
         jobs.append(("tau", (_vol(7, shape), d, dict(TAU_KW, dx=dx))))
+    for name, (shape, d, precond, cap) in TAU_MAXITER.items():
+        jobs.append(("tau", (_vol(7, shape), d, dict(
+            TAU_KW, precond=precond, maxiter=cap))))
     jobs.append(("tau_mismatch", (_vol(7, (32, 32, 32)), 0)))
     jobs.append(("ingest", (str(tmp / "v.raw"), "raw", (36, 16, 16), 0,
                             {"eps": 1e-9})))
@@ -379,6 +386,24 @@ def test_tortuosity_on_slabs_matches_single_and_jax(world, index, name):
         assert abs(g["value"] - ref.value) <= 1e-6, (name, g, ref)
         assert g["active_vf"] == ref.active_vf
         assert abs(g["iterations"] - ref.iterations) <= 2
+
+
+@pytest.mark.parametrize("index,name", enumerate(TAU_MAXITER))
+def test_tortuosity_on_slabs_stops_at_maxiter(world, index, name):
+    """The slab solve reads its probe after every iteration; it stops at
+    ``maxiter`` as the single-device port and the JAX package do."""
+    from openimpala_tpu.props.tortuosity import tortuosity as jax_tau
+    from openimpala_tpu_torch import tortuosity
+
+    shape, d, precond, cap = TAU_MAXITER[name]
+    kw = dict(TAU_KW, precond=precond, maxiter=cap)
+    phase = _vol(7, shape)
+    single = tortuosity(phase, 1, d, device="cpu", mesh=None, **kw)
+    want = jax_tau(phase, 1, d, mesh=None, **kw)
+    for g in world("tau", len(TAU) + index):
+        assert g["iterations"] == single.iterations == want.iterations == cap
+        assert not g["converged"] and not want.converged
+        assert np.isnan(g["value"]) and np.isnan(want.value)
 
 
 def test_tortuosity_on_slabs_refuses_different_volumes(world):

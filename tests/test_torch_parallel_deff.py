@@ -86,6 +86,8 @@ KW = {"eps": 1e-9}
 # 198 B per cell for three lanes: 32.5e6 cells)
 GATE_CELLS = (1000, 30_000_000, 40_000_000)
 RAW_SHAPE = (30, 12, 10)  # X padded to 32 by the ingest; 30 % 4 != 0
+# a cap below what the DEFF_SHAPE cell problems need
+SLAB_MAXITER = 3
 
 
 def _write_tiff(path, vol):
@@ -142,6 +144,11 @@ def _jobs(tmp, files):
     jobs.append(("lanes_gate", (GATE_CELLS,)))
     jobs.append(("vf_counts", (str(tmp / "v.raw"), RAW_SHAPE,
                                str(tmp / "raw.inputs"))))
+    # maxiter on slabs, through the lanes and the sequential loop (after
+    # the other "deff" jobs, so their indices stay)
+    for lanes in (True, False):
+        jobs.append(("deff", (_vol(7, DEFF_SHAPE), dict(
+            KW, maxiter=SLAB_MAXITER, lanes=lanes))))
     return jobs
 
 
@@ -288,6 +295,28 @@ def test_effective_diffusivity_on_slabs(world, deff_refs, index, lanes):
         assert np.abs(g["deff"] - np.asarray(ref.deff)).max() <= 1e-6 * scale
         assert all(abs(a - int(b)) <= 2 for a, b in zip(
             g["iterations"], np.asarray(ref.iterations)))
+
+
+@pytest.mark.parametrize("offset,lanes", [(0, True), (1, False)])
+def test_effective_diffusivity_on_slabs_stops_at_maxiter(world, offset,
+                                                         lanes):
+    """The slab solves read their probe after every iteration; they stop
+    at ``maxiter`` as the single-device port does, and as the JAX
+    package's sequential loop does."""
+    from openimpala_tpu.props.effective_diffusivity import (
+        effective_diffusivity as jax_deff)
+    from openimpala_tpu_torch import effective_diffusivity
+
+    phase = _vol(7, DEFF_SHAPE)
+    kw = dict(KW, maxiter=SLAB_MAXITER)
+    single = effective_diffusivity(phase, 1, device="cpu", mesh=None,
+                                   lanes=lanes, **kw)
+    want = jax_deff(phase, 1, mesh=None, lanes=False, **kw)
+    cap = (SLAB_MAXITER,) * 3
+    for g in world("deff", len(DEFF_LANES) + 1 + offset):
+        assert g["lanes"] == lanes and not g["converged"]
+        assert g["iterations"] == single.iterations == cap
+        assert tuple(want.iterations) == cap and not want.converged
 
 
 def test_effective_diffusivity_of_a_host_slab(world, deff_refs):
