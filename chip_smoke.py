@@ -95,9 +95,16 @@ Phases (each failure exits non-zero and prints no result line):
                must be the card's table's (batched up to 112^3).  Every path
                runs its PCG iterations as CUDA graphs, as its entry point
                does (``utils/graphs.py``), logs ``graph: captures=,
-               replays=, capture_s=``, and is run again as its eager twin
-               (``graphs._eager_twin``): its result and iterations must be
-               equal bit for bit, and every launch counter equal; the
+               replays=, capture_s=`` and the iterations counted and
+               executed in its Krylov calls (the refinement rounds):
+               executed may pass counted by at most ``graphs.IN_FLIGHT``
+               done-gated steps a call, and every executed step is a
+               holder's eager first step or a replay.  It is run again as
+               its eager twin (``graphs._eager_twin``): its result and
+               iterations must be equal bit for bit, the twin must execute
+               exactly the iterations it counts, as many as the graphed
+               run counts, and every launch counter must be equal once the
+               graphed run's steps past its counts are taken off; the
                results recorded before the iterations were graphed
                (``EAGER_RECORD``) are printed beside.  The CLI path's
                FGMRES stays eager (no capture, no twin), and its early
@@ -192,7 +199,8 @@ Phases (each failure exits non-zero and prints no result line):
 4c. graph    - at 128^3, ``tortuosity`` (default and ``sa``), the lanes of
                ``effective_diffusivity`` and ``rev_study`` (16 crops of
                64^3), graphed against the eager twin: results, iterations
-               and every launch counter equal;
+               and every launch counter equal, iterations counted and
+               executed held as on the main paths;
 4d. rules    - ``maxiter`` as a hard cap, at 128^3: ``tortuosity`` with
                ``maxiter=20`` under ``precond="auto"`` and ``"jacobi"``
                must stop at exactly 20 iterations, unconverged, tau NaN;
@@ -1126,14 +1134,38 @@ def _all_counts():
     return {k: dict(v) for k, v in sc.snapshot_counts().items()}
 
 
-def _graph_stats(label):
-    """The CUDA graphs' captures, replays and capture seconds since the
-    last ``graphs.reset_stats()``, logged."""
+def _stats():
+    """A copy of the graph statistics, with the launches of the steps
+    executed past the counts (``graphs.surplus_counts``)."""
     from openimpala_tpu_torch.utils import graphs
 
-    st = dict(graphs.stats)
+    return dict(graphs.stats, surplus_counts={
+        k: collections.Counter(v) for k, v in graphs.surplus_counts.items()})
+
+
+def _graph_stats(label):
+    """The CUDA graphs' captures, replays and capture seconds since the
+    last ``graphs.reset_stats()``, and the PCG loops' iterations counted
+    (read) and executed in their Krylov calls (one per refinement round),
+    logged.  Executed may pass counted by at most ``graphs.IN_FLIGHT``
+    done-gated steps a call; on the graphs every executed step is the
+    eager first step of a holder or a replay."""
+    from openimpala_tpu_torch.utils import graphs
+
+    st = _stats()
+    w = graphs.IN_FLIGHT
     log(f"main[{label}] graph: captures={st['captures']}, "
-        f"replays={st['replays']}, capture_s={st['capture_s']:.3f}")
+        f"replays={st['replays']}, capture_s={st['capture_s']:.3f}; "
+        f"iterations counted / executed {st['reads']} / {st['steps']} in "
+        f"{st['calls']} Krylov calls (refinement rounds; IN_FLIGHT={w})")
+    require(0 <= st["steps"] - st["reads"] <= w * st["calls"],
+            f"main[{label}]: {st['steps']} iterations executed for "
+            f"{st['reads']} counted in {st['calls']} calls (at most "
+            f"{w} a call past the count)")
+    require(not st["calls"]
+            or st["steps"] == st["captures"] + st["replays"],
+            f"main[{label}]: {st['steps']} PCG steps executed, "
+            f"{st['captures']} eager + {st['replays']} replayed")
     return st
 
 
@@ -1147,9 +1179,9 @@ def _reset():
 
 
 def _eager_twin(call):
-    """``call()`` again with every solver chunk eager on the card
+    """``call()`` again with every solver step eager on the card
     (``graphs._eager_twin``), the counters zeroed just before: (its
-    result, every counter, wall seconds)."""
+    result, every counter, wall seconds, the graph statistics)."""
     from openimpala_tpu_torch.utils import graphs
 
     torch.cuda.empty_cache()
@@ -1159,30 +1191,44 @@ def _eager_twin(call):
         out = call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return out, _all_counts(), wall
+    return out, _all_counts(), wall, _stats()
 
 
 def _inner(history):
     """A result's inner residual records, as one list: (solve, iteration,
-    rel_res) for each chunk of each solve (``history`` a ResidualHistory
+    rel_res) for each iteration of each solve (``history`` a ResidualHistory
     or a tuple of them; a lanes solve's rel_res is one per lane)."""
     hists = history if isinstance(history, tuple) else (history,)
     return [(i, it, rel) for i, h in enumerate(hists) if h is not None
             for it, rel in h.inner]
 
 
-def _require_twin(label, got, want, counts, twin_counts, hists=None):
+def _less_surplus(counts, gstats):
+    """Launch counters less the launches of the done-gated steps the
+    graphed PCG loops ran past their counts (``surplus_counts``)."""
+    surplus = gstats["surplus_counts"]
+    return {k: dict(+(collections.Counter(v)
+                      - surplus.get(k, collections.Counter())))
+            for k, v in counts.items()}
+
+
+def _require_twin(label, got, want, counts, twin_counts, gstats, tstats,
+                  hists=None):
     """A graphed run and its eager twin: the same result and iterations
-    (``got``, ``want``: comparable keys) and every counter equal.  On a
-    difference, ``hists`` (the two runs' ``history``) are printed up to
-    the first chunk where their residuals differ, with both runs' K1
+    (``got``, ``want``: comparable keys); the twin executes exactly the
+    iterations it counts, as many as the graphed run counts; every counter
+    equal once the graphed run's done-gated steps past its counts are
+    taken off (``gstats``, ``tstats``: the two runs' graph statistics).  On
+    a difference, ``hists`` (the two runs' ``history``) are printed up to
+    the first iteration where their residuals differ, with both runs' K1
     launches by route and extent, before the check fails."""
     if got != want and hists is not None:
         a, b = (_inner(h) for h in hists)
         first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                      min(len(a), len(b)))
         log(f"main[{label}] twin mismatch: residual histories up to the "
-            f"first differing chunk ({first}; solve, iteration, rel_res):")
+            f"first differing iteration ({first}; solve, iteration, "
+            f"rel_res):")
         log(f"main[{label}]   graphed {json.dumps(a[:first + 1])}")
         log(f"main[{label}]   eager   {json.dumps(b[:first + 1])}")
         for name, c in (("graphed", counts), ("eager", twin_counts)):
@@ -1192,10 +1238,24 @@ def _require_twin(label, got, want, counts, twin_counts, hists=None):
                      c["launches_route_at"].items())}))
     require(got == want, f"main[{label}]: graphed {got!r} against its eager "
                          f"twin {want!r}")
+    log(f"main[{label}] iterations counted / executed: graphed "
+        f"{gstats['reads']} / {gstats['steps']}, eager twin "
+        f"{tstats['reads']} / {tstats['steps']} ({tstats['calls']} Krylov "
+        f"calls)")
+    require(tstats["steps"] == tstats["reads"] == gstats["reads"]
+            and tstats["calls"] == gstats["calls"],
+            f"main[{label}]: the eager twin executed {tstats['steps']} "
+            f"iterations and counted {tstats['reads']} in "
+            f"{tstats['calls']} calls, the graphed run counted "
+            f"{gstats['reads']} in "
+            f"{gstats['calls']}")
+    counts = _less_surplus(counts, gstats)
+    twin_counts = _less_surplus(twin_counts, tstats)
     diff = {k: (counts[k], twin_counts[k]) for k in counts
             if counts[k] != twin_counts[k]}
     require(not diff, f"main[{label}]: launch counters differ between the "
-                      f"graphed run and its eager twin: {diff}")
+                      f"graphed run (less its steps past the count) and "
+                      f"its eager twin: {diff}")
 
 
 def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None,
@@ -1254,8 +1314,11 @@ def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None,
             f"main[{label}]: K1 matvec+dot launched {dots} times for "
             f"{res.iterations} PCG iterations")
     require(gstats["captures"] >= 1 and gstats["replays"] >= 1,
-            f"main[{label}]: the PCG chunks were not replayed: {gstats}")
-    twin, twin_counts, twin_wall = _eager_twin(lambda: tortuosity(
+            f"main[{label}]: the PCG steps were not replayed: {gstats}")
+    require(gstats["reads"] == res.iterations,
+            f"main[{label}]: the loops counted {gstats['reads']} "
+            f"iterations, the result {res.iterations}")
+    twin, twin_counts, twin_wall, tstats = _eager_twin(lambda: tortuosity(
         vol, 1, "X", eps=1e-9, dx=dx, precond=precond, precond_opts=opts,
         device="cuda", return_history=True))
     log(f"main[{label}] eager twin: tau={twin.value!r} "
@@ -1263,7 +1326,7 @@ def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None,
         f"wall_s={twin_wall:.3f} (graphed {wall:.3f})")
     _require_twin(label, (res.value, res.iterations, res.rel_res),
                   (twin.value, twin.iterations, twin.rel_res), full,
-                  twin_counts, (res.history, twin.history))
+                  twin_counts, gstats, tstats, (res.history, twin.history))
     return {"iterations": res.iterations, "counts": counts, "at": at,
             "plain": plain, "tau": res.value, "mask": res.active,
             "wall_s": wall, "routes": routes, "fine": (n, n, n),
@@ -1607,8 +1670,11 @@ def _drive_deff(label, vol, n, dx, precond):
     require(dots >= its, f"main[{label}]: K1 matvec+dot launched {dots} "
                          f"times for {its} PCG iterations")
     require(gstats["captures"] >= 1 and gstats["replays"] >= 1,
-            f"main[{label}]: the PCG chunks were not replayed: {gstats}")
-    eager, eager_counts, eager_wall = _eager_twin(
+            f"main[{label}]: the PCG steps were not replayed: {gstats}")
+    require(res.lanes or gstats["reads"] == its,
+            f"main[{label}]: the loops counted {gstats['reads']} "
+            f"iterations, the result {its}")
+    eager, eager_counts, eager_wall, tstats = _eager_twin(
         lambda: effective_diffusivity(vol, 1, eps=1e-9, dx=dx,
                                       precond=precond, device="cuda",
                                       lanes=res.lanes, return_history=True))
@@ -1617,7 +1683,8 @@ def _drive_deff(label, vol, n, dx, precond):
         f"wall_s={eager_wall:.3f} (graphed {wall:.3f})")
     _require_twin(label, (res.deff.tolist(), res.iterations, res.rel_res),
                   (eager.deff.tolist(), eager.iterations, eager.rel_res),
-                  full, eager_counts, (res.history, eager.history))
+                  full, eager_counts, gstats, tstats,
+                  (res.history, eager.history))
     return {"iterations": its, "counts": counts, "at": {}, "plain": plain,
             "wall_s": wall, "routes": routes, "fine": (n, n, n),
             "value": float(res.deff[0, 0]), "twin_wall_s": eager_wall,
@@ -1725,14 +1792,15 @@ def _drive_rev(label, vol, n, dx):
             f"main[{label}]: not one graph per direction, replayed: "
             f"{gstats}")
     mean = float(np.mean([s.deff[0, 0] for s in samples]))
-    twin, twin_counts, twin_wall = _eager_twin(lambda: rev_study(
+    twin, twin_counts, twin_wall, tstats = _eager_twin(lambda: rev_study(
         vol, 1, sizes=(size,), num_samples=REV_SAMPLES, eps=1e-9, dx=dx,
         device="cuda"))
     twin_mean = float(np.mean([s.deff[0, 0] for s in twin]))
     log(f"main[{label}] eager twin: D_xx mean={twin_mean!r} "
         f"wall_s={twin_wall:.3f} (graphed {wall:.3f})")
     _require_twin(label, [s.deff.tolist() for s in samples],
-                  [s.deff.tolist() for s in twin], full, twin_counts)
+                  [s.deff.tolist() for s in twin], full, twin_counts,
+                  gstats, tstats)
     return {"iterations": sum(d["executed_iterations"] for d in per_dir),
             "counts": counts, "at": {}, "plain": plain, "wall_s": wall,
             "samples": samples, "size": size, "value": mean,
@@ -1796,8 +1864,8 @@ def _drive_direct(label):
     t0 = time.perf_counter()
     part = cut()
     part_wall = time.perf_counter() - t0
-    part_counts = _all_counts()
-    twin, twin_counts, twin_wall = _eager_twin(cut)
+    part_counts, part_stats = _all_counts(), _stats()
+    twin, twin_counts, twin_wall, tstats = _eager_twin(cut)
     log(f"main[{label}] the first {steps} steps: graphed residual="
         f"{part.residual!r} wall_s={part_wall:.3f}; eager twin residual="
         f"{twin.residual!r} wall_s={twin_wall:.3f} "
@@ -1806,7 +1874,8 @@ def _drive_direct(label):
     _require_twin(label, (part.iterations, part.residual, part.flux_in,
                           part.flux_out, part.converged),
                   (twin.iterations, twin.residual, twin.flux_in,
-                   twin.flux_out, twin.converged), part_counts, twin_counts)
+                   twin.flux_out, twin.converged), part_counts, twin_counts,
+                  part_stats, tstats)
     require(torch.equal(part.phi, twin.phi),
             f"main[{label}]: the fields differ from the eager twin's")
     return {"iterations": res.iterations, "value": res.value,
@@ -2742,16 +2811,17 @@ def phase_graph(seed):
         wall = time.perf_counter() - t0
         counts = _all_counts()
         gstats = _graph_stats(f"graph {GRAPH_N}^3 {name}")
-        twin, twin_counts, twin_wall = _eager_twin(call)
+        twin, twin_counts, twin_wall, tstats = _eager_twin(call)
         got, want = _graph_key(name, out), _graph_key(name, twin)
-        equal = counts == twin_counts
+        equal = _less_surplus(counts, gstats) == twin_counts
         log(f"graph {GRAPH_N}^3 {name}: graphed {str(got)[:160]} wall_s="
             f"{wall:.3f}; eager twin wall_s={twin_wall:.3f}; results equal: "
             f"{got == want}; counters equal: {equal} ("
             f"{sum(counts['launches'].values())} launches)")
         require(gstats["replays"] >= 1,
-                f"graph[{name}]: no chunk was replayed: {gstats}")
-        _require_twin(f"graph {name}", got, want, counts, twin_counts)
+                f"graph[{name}]: no step was replayed: {gstats}")
+        _require_twin(f"graph {name}", got, want, counts, twin_counts,
+                      gstats, tstats)
 
 
 def phase_rules(seed):

@@ -12,10 +12,13 @@ alpha, beta and residual, and lanes that have converged keep their state.
   every lane come from one launch of kernel K4 on the explicit (diag, free)
   arrays the preconditioner holds (``ops/stencil.py::apply_restricted``),
   each lane wrapping on its own.
-* **Chunks**: ``chunk`` iterations are queued back to back, then ONE host
-  read says whether every lane is done.  On CUDA an iteration is a CUDA
-  graph (``utils/graphs.py``), captured once per direction and replayed in
-  every refinement round.
+* **One read per iteration**: after every iteration one host read of
+  (the largest lane count, all done) says whether every lane is done, and
+  the loop stops there.  On CUDA an iteration is a CUDA graph
+  (``utils/graphs.py``), captured once per direction and replayed in every
+  refinement round, and the reads are pipelined (``graphs.iterate``: at
+  most ``IN_FLIGHT`` done-gated iterations past the count).  The JAX
+  package's chunks of 25 exist for its TPU runtime only.
 * **Memory-sized groups**: ``batched_deff`` splits the crop stack into
   groups sized from the refinement state's bytes per crop.
 """
@@ -91,11 +94,11 @@ def _batched_probe(it, done):
 
 
 def _batched_cg(systems, r0, denom, eps, maxiter: int, precond,
-                chunk: int = 25, _graph=None):
-    """Host-chunked batched PCG: z with z0 = 0 per lane, the last chunk
-    cut so that no lane's count passes ``maxiter``.  Returns
-    ``(z, iterations (B,), rel_res (B,))``.  ``_graph``: as in
-    ``solve/cg.py::_cg_chunked_loop``."""
+                _graph=None):
+    """Batched PCG, one host read per iteration (``graphs.iterate``):
+    z with z0 = 0 per lane, stopped when every lane is done or the largest
+    lane count reaches ``maxiter``.  Returns ``(z, iterations (B,),
+    rel_res (B,))``.  ``_graph``: as in ``solve/cg.py::_cg_loop``."""
     B = r0.shape[0]
     y = precond(r0)
     rz = torch.sum(r0 * y, dim=_VOL)
@@ -112,19 +115,13 @@ def _batched_cg(systems, r0, denom, eps, maxiter: int, precond,
                         state, (denom, torch.full((), float(eps),
                                                   dtype=r0.dtype,
                                                   device=r0.device)))
-        it = 0  # the largest lane count
-        while it < maxiter:
-            n = min(chunk, maxiter - it)
-            if holder:
-                (probe,) = holder.run(n)
-            else:
-                for _ in range(n):
-                    _batched_step(systems, precond, state, denom, float(eps))
-                (probe,) = _batched_probe(state[4], state[6])
-            it_max, all_done = probe.tolist()  # ONE read per chunk
-            it = int(it_max)
-            if all_done > 0:
-                break
+        if not bool(state[6].all()):  # every r0 already meets eps
+            graphs.iterate(
+                holder,
+                lambda: _batched_step(systems, precond, state, denom,
+                                      float(eps)),
+                lambda: _batched_probe(state[4], state[6])[0], maxiter,
+                lambda values: values[1] > 0)
         z, r, p, rz, it, rel, done = holder.state if holder else state
         if holder and holder is _graph:
             # a shared holder's buffers: the next call overwrites them

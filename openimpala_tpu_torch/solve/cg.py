@@ -1,13 +1,17 @@
 """Preconditioned conjugate gradients on the free-set stencil system
 (counterpart of ``openimpala_tpu/solve/cg.py``).
 
-One loop on every device: the top-form PCG recurrence advanced ``chunk``
-iterations at a time with a done-gated iteration counter, and ONE host read
-per chunk (a packed (iterations, done, rel) probe).  Inside a chunk no
-device value is read back, so the card runs the chunk's kernels back to
-back.  On CUDA an iteration is a CUDA graph (``utils/graphs.py``, the
-counterpart of the JAX package's jitted ``_cg_chunk``): a solve's first
-iteration runs eagerly, every later one is a replay of its capture.
+One loop on every device: the top-form PCG recurrence with a done-gated
+iteration counter, and a host read of the packed (iterations, done, rel)
+probe after every iteration, so the loop stops at the iteration that
+converges, as the JAX package's ``_cg_loop`` does.  On CUDA an iteration
+is a CUDA graph (``utils/graphs.py``, the counterpart of the JAX
+package's jitted ``_cg_chunk``): a solve's first iteration runs eagerly,
+every later one is a replay of its capture, and the reads are pipelined:
+the host keeps ``graphs.IN_FLIGHT`` iterations enqueued behind the one
+whose probe it reads, so the card does not wait for the read, and a solve
+executes at most that many done-gated iterations past its count.  The JAX
+package's chunks of 16 exist for its TPU runtime only and are not kept.
 
 On X slabs (a system with a ``mesh``) every dot product and norm is summed
 over the ranks, so every rank takes the same branch from the same
@@ -41,8 +45,9 @@ class SolveResult:
 @dataclasses.dataclass
 class ResidualHistory:
     """Opt-in convergence trace: ``inner`` holds ``(cumulative_krylov_
-    iteration, rel_res)`` per chunk, ``outer`` holds ``(refine_round,
-    rel_res)`` per refinement round (round -1: the final re-measure)."""
+    iteration, rel_res)`` per iteration (per restart cycle for FGMRES),
+    ``outer`` holds ``(refine_round, rel_res)`` per refinement round
+    (round -1: the final re-measure)."""
 
     inner: list = dataclasses.field(default_factory=list)
     outer: list = dataclasses.field(default_factory=list)
@@ -115,43 +120,40 @@ def _cg_step(system, precond, state, denom, eps):
 
 
 def _probe(it, rel, done):
-    """The packed (it, done, rel) probe the host reads once per chunk
-    (the arguments in the state's order)."""
+    """The packed (it, done, rel) probe the host reads after each
+    iteration (the arguments in the state's order)."""
     return (torch.stack([it.to(torch.float64), done.to(torch.float64),
                          rel.to(torch.float64)]),)
 
 
-def _cg_chunk(system, precond, state, denom, eps, chunk: int):
-    """``chunk`` iterations of ``_cg_step`` on ``state`` (advanced in
-    place); returns the probe, still on the device."""
-    for _ in range(chunk):
-        _cg_step(system, precond, state, denom, eps)
-    return _probe(*state[4:])[0]
-
-
-def _cg_chunked_loop(system, r0, denom, eps, maxiter: int, precond,
-                     chunk: int = 16, verbose: int = 0, history=None,
-                     _graph=None):
-    """PCG advancing ``chunk`` iterations per host check (see _cg_step);
-    the last chunk is cut to what is left of ``maxiter``, so the count
-    never passes it (the JAX package's ``_cg_loop``, ``it < maxiter``).
-    On CUDA the iterations replay a CUDA graph (``utils/graphs.py``):
-    ``_graph`` a ``ChunkGraph`` serves several calls (the refinement
-    rounds of one solve), None makes one for this call."""
+def _cg_loop(system, r0, denom, eps, maxiter: int, precond,
+             verbose: int = 0, history=None, _graph=None):
+    """PCG (see _cg_step) stopped at the first iteration whose probe shows
+    it done, or at ``maxiter`` (the JAX package's ``_cg_loop``, ``it <
+    maxiter``); on the CPU, on slabs and in the eager twin it executes
+    exactly the iterations it counts.  On CUDA the iterations replay a
+    CUDA graph (``utils/graphs.py::iterate``: at most ``IN_FLIGHT``
+    done-gated ones past the count): ``_graph`` a ``ChunkGraph`` serves
+    several calls (the refinement rounds of one solve), None makes one for
+    this call."""
     dtype = r0.dtype
     dev = r0.device
     denom = torch.as_tensor(denom, dtype=dtype).to(dev)
     mesh = _mesh(system)
-    if mesh is not None:
-        # the sums of every iteration already pass through the host: read
-        # the probe after each, so no done-gated iteration runs (each costs
-        # its exchanges)
-        chunk = 1
     rel0 = torch.sqrt(_dot(r0, r0, mesh)) / denom
     done0 = rel0 <= eps
     state = (torch.zeros_like(r0), r0.clone(), torch.zeros_like(r0),
              torch.zeros((), dtype=dtype, device=dev),
              torch.zeros((), dtype=torch.int32, device=dev), rel0, done0)
+
+    def stop(values):
+        it_v, done_v, rel_v = values
+        if verbose >= 2:
+            print(f"    cg it={int(it_v):5d}  rel_res={rel_v:.6e}")
+        if history is not None:
+            history.record_inner(it_v, rel_v)
+        return done_v > 0
+
     with graphs.solve_graph(dev, _graph, mesh) as holder:
         if holder:
             # eps enters as a tensor of the state's dtype: the value a
@@ -162,21 +164,10 @@ def _cg_chunked_loop(system, r0, denom, eps, maxiter: int, precond,
                         lambda *a: _probe(*a[4:7]),
                         state, (denom, torch.full((), eps, dtype=dtype,
                                                   device=dev)))
-        it = 0
-        while it < maxiter:
-            n = min(chunk, maxiter - it)
-            if holder:
-                (probe,) = holder.run(n)
-            else:
-                probe = _cg_chunk(system, precond, state, denom, eps, n)
-            it_v, done_v, rel_v = probe.tolist()  # ONE read per chunk
-            it = int(it_v)
-            if verbose >= 2:
-                print(f"    cg it={it:5d}  rel_res={rel_v:.6e}")
-            if history is not None:
-                history.record_inner(it, rel_v)
-            if done_v > 0:
-                break
+        if not bool(done0):  # r0 already meets eps: no iteration
+            graphs.iterate(
+                holder, lambda: _cg_step(system, precond, state, denom, eps),
+                lambda: _probe(*state[4:])[0], maxiter, stop)
         z, r, p, rz, it, rel, done = holder.state if holder else state
         if holder and holder is _graph:
             # a shared holder's buffers: the next call overwrites them
@@ -198,5 +189,5 @@ def cg(system, r0, denom, eps, maxiter: int, precond=None, verbose: int = 0,
     denom = torch.where(denom > 0, denom,
                         torch.sqrt(_dot(r0, r0, _mesh(system))))
     denom = torch.where(denom > 0, denom, 1.0)
-    return _cg_chunked_loop(system, r0, denom, eps, int(maxiter), precond,
-                            verbose=verbose, history=history, _graph=_graph)
+    return _cg_loop(system, r0, denom, eps, int(maxiter), precond,
+                    verbose=verbose, history=history, _graph=_graph)

@@ -12,7 +12,9 @@ as lanes of one solve:
   lanes never couple, so each lane repeats the sequential solve's top-form
   recurrence, ``solve/cg.py``);
 * every vector update is one op on the stacked lanes, and the host reads
-  one (3, L) probe per chunk of 16 iterations for all lanes;
+  one (3, L) probe for all lanes after every iteration, and stops when
+  every lane is done (on CUDA pipelined, as the mono loop's reads are:
+  ``utils/graphs.py::iterate``);
 * the operator apply is L calls of the shared system's K1 matvec+dot, and
   the preconditioner, built once from ``base()``, is applied per lane;
 * iterative refinement (``solve/refine.py``'s policy, lane-wise) runs all
@@ -24,7 +26,7 @@ On X slabs (systems built with a ``mesh``) every lane's dot products and
 norms are summed over the ranks (``Mesh.allsum``, the same bits on every
 rank, so every rank reads the same probe and takes the same branch), each
 lane's preconditioner is the slab cycle (``solve/slab_mg.py``), and the
-iterations run eagerly, one per host read, as the mono loop's do there.
+iterations run eagerly, as the mono loop's do there.
 
 Memory gate (``use_lanes``): lane state is L times the mono solve's; on
 slabs each rank holds its share, on a device it may share with other
@@ -155,30 +157,18 @@ def _lanes_step(lsys, precond, state, denom, eps):
     done.copy_(done2)
 
 
-def _cg_chunk_lanes(lsys, precond, state, denom, eps, chunk: int):
-    """``chunk`` iterations of ``_lanes_step`` on ``state`` (advanced in
-    place); returns the packed (3, L) probe (iterations, done, rel), still
-    on the device."""
-    for _ in range(chunk):
-        _lanes_step(lsys, precond, state, denom, eps)
-    return _probe(*state[4:])[0]
-
-
 def cg_lanes(lsys: LaneSystem, r0, denom, eps, maxiter: int, precond,
-             chunk: int = 16, verbose: int = 0, history=None,
-             _graph=None) -> SolveResult:
-    """Lockstep PCG on ``(L, ...)`` state, ``chunk`` iterations per host
-    read (the mono loop's 16; the last chunk cut so that the largest lane
-    count never passes ``maxiter``), z0 = 0.  ``denom`` is per lane (a
-    zero one falls back to ``||r0_i||``, then to 1); ``precond`` None is
-    the identity.  Returns a ``SolveResult`` whose iterations, rel_res and
-    converged are (L,) tensors.  ``_graph``: as in ``solve/cg.py::
-    _cg_chunked_loop``."""
+             verbose: int = 0, history=None, _graph=None) -> SolveResult:
+    """Lockstep PCG on ``(L, ...)`` state, one host read of the (3, L)
+    probe per iteration, stopped when every lane is done or the largest
+    lane count reaches ``maxiter`` (the mono loop's rule, ``solve/cg.py::
+    _cg_loop``), z0 = 0.  ``denom`` is per lane (a zero one falls back to
+    ``||r0_i||``, then to 1); ``precond`` None is the identity.  Returns a
+    ``SolveResult`` whose iterations, rel_res and converged are (L,)
+    tensors.  ``_graph``: as in ``solve/cg.py::_cg_loop``."""
     L = r0.shape[0]
     dev = r0.device
     mesh = lsys.mesh
-    if mesh is not None:
-        chunk = 1  # the sums already pass through the host (cg.py's rule)
     denom = torch.as_tensor(denom, dtype=r0.dtype).to(dev)
     norm0 = torch.sqrt(_lane_dot(r0, r0, mesh))
     denom = torch.where(denom > 0, denom, norm0)
@@ -188,6 +178,17 @@ def cg_lanes(lsys: LaneSystem, r0, denom, eps, maxiter: int, precond,
              torch.zeros((L,), dtype=r0.dtype, device=dev),
              torch.zeros((L,), dtype=torch.int32, device=dev), rel0,
              rel0 <= eps)
+
+    def stop(values):
+        its, dones, rels_v = values
+        it = int(max(its))  # the largest lane count
+        if verbose >= 2:
+            rels = ", ".join(f"{v:.3e}" for v in rels_v)
+            print(f"    cg-lanes it={it:5d}  rel_res=[{rels}]")
+        if history is not None:
+            history.record_inner(it, rels_v)
+        return all(d > 0 for d in dones)
+
     with graphs.solve_graph(dev, _graph, mesh) as holder:
         if holder:
             holder.load(("lanes", id(lsys), id(precond)),
@@ -196,22 +197,11 @@ def cg_lanes(lsys: LaneSystem, r0, denom, eps, maxiter: int, precond,
                         lambda *a: _probe(*a[4:7]),
                         state, (denom, torch.full((), eps, dtype=r0.dtype,
                                                   device=dev)))
-        it = 0  # the largest lane count
-        while it < maxiter:
-            n = min(chunk, maxiter - it)
-            if holder:
-                (probe,) = holder.run(n)
-            else:
-                probe = _cg_chunk_lanes(lsys, precond, state, denom, eps, n)
-            its, dones, rels_v = probe.tolist()  # ONE read per chunk
-            it = int(max(its))
-            if verbose >= 2:
-                rels = ", ".join(f"{v:.3e}" for v in rels_v)
-                print(f"    cg-lanes it={it:5d}  rel_res=[{rels}]")
-            if history is not None:
-                history.record_inner(it, rels_v)
-            if all(d > 0 for d in dones):
-                break
+        if not bool(state[6].all()):  # every r0 already meets eps
+            graphs.iterate(
+                holder,
+                lambda: _lanes_step(lsys, precond, state, denom, eps),
+                lambda: _probe(*state[4:])[0], maxiter, stop)
         z, r, p, rz, it, rel, done = holder.state if holder else state
         if holder and holder is _graph:
             # a shared holder's buffers: the next call overwrites them

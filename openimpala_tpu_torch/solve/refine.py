@@ -141,7 +141,7 @@ def solve_system(system, x0_free, eps: float, maxiter: int,
     ``info.rel_res`` the full-system relative residual measured in
     ``outer_dtype``.  ``timings``: optional dict that collects the wall
     seconds of the hierarchy build, outer residuals and inner rounds.
-    ``_graph``: see ``solve/cg.py::_cg_chunked_loop`` (None: one CUDA
+    ``_graph``: see ``solve/cg.py::_cg_loop`` (None: one CUDA
     graph for the whole solve on CUDA).
     """
     with graphs.solve_graph(system.code.device, _graph,

@@ -7,6 +7,8 @@ it runs where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import collections
+
 import numpy as np
 import pytest
 
@@ -683,22 +685,41 @@ def _counts():
     return {k: dict(v) for k, v in sc.snapshot_counts().items()}
 
 
+def _less(counts, surplus):
+    """Launch counters less the launches of the steps a graphed PCG loop
+    ran past its count (``graphs.surplus_counts``)."""
+    return {k: dict(+(collections.Counter(v)
+                      - surplus.get(k, collections.Counter())))
+            for k, v in counts.items()}
+
+
 def _twin(call):
     """``call()`` graphed, then inside ``_eager_twin()``; each with the
     launch counters reset just before.  Returns both results, both counts
-    and the graph statistics of the graphed run."""
+    (the graphed run's less the launches of the done-gated steps it ran
+    past its count) and the graph statistics of the graphed run.  The
+    eager twin executes exactly the iterations it counts, the graphed run
+    counts as many and executes at most ``IN_FLIGHT`` more per PCG
+    call."""
     from openimpala_tpu_torch.utils import graphs
 
     sc.reset_counts()
     graphs.reset_stats()
     got = call()
     torch.cuda.synchronize()
-    counts, stats = _counts(), dict(graphs.stats)
+    stats = dict(graphs.stats)
+    counts = _less(_counts(), graphs.surplus_counts)
     sc.reset_counts()
+    graphs.reset_stats()
     with graphs._eager_twin():
         want = call()
     torch.cuda.synchronize()
-    return got, want, counts, _counts(), stats
+    twin = dict(graphs.stats)
+    assert twin["steps"] == twin["reads"] == stats["reads"]
+    assert twin["calls"] == stats["calls"]
+    assert 0 <= stats["steps"] - stats["reads"] <= \
+        graphs.IN_FLIGHT * stats["calls"]
+    return got, want, counts, _less(_counts(), {}), stats
 
 
 def _blob_system(cuda, n=32, kind="flow", dtype=torch.float32):
@@ -715,6 +736,7 @@ def _blob_system(cuda, n=32, kind="flow", dtype=torch.float32):
 def test_graphed_cg_equals_eager(cuda, precond):
     from openimpala_tpu_torch.solve.cg import cg
     from openimpala_tpu_torch.solve.refine import make_precond
+    from openimpala_tpu_torch.utils import graphs
 
     s = _blob_system(cuda, 48, dtype=torch.float64)
     M = make_precond(s, precond)
@@ -727,9 +749,9 @@ def test_graphed_cg_equals_eager(cuda, precond):
     assert torch.equal(got.rel_res, want.rel_res)
     assert cg_ == ce and cg_["launches"]
     # the first iteration eager, then one capture and a replay for every
-    # other iteration of the whole chunks of 16
+    # other iteration, and at most IN_FLIGHT done-gated ones past the count
     assert stats["captures"] == 1
-    assert stats["replays"] == 16 * -(-its // 16) - 1
+    assert its - 1 <= stats["replays"] <= its - 1 + graphs.IN_FLIGHT
 
 
 def test_graph_serves_every_refinement_round(cuda):
@@ -737,6 +759,7 @@ def test_graph_serves_every_refinement_round(cuda):
     tensor, so the rounds' different eps reach the graph."""
     from openimpala_tpu_torch.solve.cg import ResidualHistory
     from openimpala_tpu_torch.solve.refine import solve_system
+    from openimpala_tpu_torch.utils import graphs
 
     s = _blob_system(cuda, 48)
     x0 = torch.zeros_like(s.r0_b)
@@ -752,12 +775,16 @@ def test_graph_serves_every_refinement_round(cuda):
     assert ig.rel_res == ie.rel_res and hg.inner == he.inner
     assert hg.outer == he.outer and len(hg.outer) >= 3  # several rounds
     assert cg_ == ce
-    assert stats["captures"] == 1
+    assert stats["captures"] == 1 and stats["calls"] >= 2
+    # each round stops at its count, with at most IN_FLIGHT steps past it
+    assert ig.iterations <= stats["captures"] + stats["replays"] <= \
+        ig.iterations + graphs.IN_FLIGHT * stats["calls"]
 
 
 def test_graphed_lanes_equal_eager(cuda):
     from openimpala_tpu_torch.solve.lanes import (LaneSystem,
                                                   solve_system_lanes)
+    from openimpala_tpu_torch.utils import graphs
 
     from openimpala_tpu_torch.utils.sample_data import make_blobs
 
@@ -770,10 +797,14 @@ def test_graphed_lanes_equal_eager(cuda):
     assert torch.equal(xg, xe)
     assert ig.iterations == ie.iterations and ig.rel_res == ie.rel_res
     assert cg_ == ce and stats["captures"] == 1
+    # the largest lane count of each round, at most IN_FLIGHT steps past
+    assert stats["reads"] <= stats["captures"] + stats["replays"] <= \
+        stats["reads"] + graphs.IN_FLIGHT * stats["calls"]
 
 
 def test_graphed_batched_equals_eager(cuda):
     from openimpala_tpu_torch.solve.batched import batched_cell_problems
+    from openimpala_tpu_torch.utils import graphs
 
     masks = torch.from_numpy(np.random.default_rng(0).random(
         (6, 16, 16, 16)) < 0.7).to(cuda)
@@ -782,6 +813,8 @@ def test_graphed_batched_equals_eager(cuda):
     assert torch.equal(cg_chi, ce_chi) and torch.equal(cg_rel, ce_rel)
     assert bool(cg_ok.all()) and torch.equal(cg_ok, ce_ok)
     assert cg_ == ce and stats["captures"] == 1
+    assert stats["reads"] <= stats["captures"] + stats["replays"] <= \
+        stats["reads"] + graphs.IN_FLIGHT * stats["calls"]
 
 
 def test_graphed_direct_equals_eager_and_cpu(cuda):
@@ -867,6 +900,34 @@ def test_replay_adds_the_captured_counts(cuda):
     torch.testing.assert_close(h.state[0], ref, rtol=0, atol=0)
     torch.testing.assert_close(got, dot * 2, rtol=0, atol=0)
     h.close()
+
+
+def test_pipelined_probe_reads_every_step(cuda):
+    """``advance`` enqueues a step and its probe's copy into a pinned
+    slot; ``read`` returns that step's probe while later steps are in
+    flight, and refuses a ticket whose slot a later step has taken."""
+    from openimpala_tpu_torch.utils import graphs
+
+    def step(x, k):
+        x.add_(k)
+
+    def tail(x, k):
+        return (torch.stack([x.sum(), x[0]]),)
+
+    h = graphs.ChunkGraph()
+    h.load("p", step, tail, (torch.zeros(4, device=cuda),),
+           (torch.ones((), device=cuda),))
+    slots = graphs.IN_FLIGHT + 1
+    tickets = [h.advance() for _ in range(slots)]
+    assert tickets == list(range(slots))
+    for k in range(20):
+        assert h.read(k) == [4.0 * (k + 1), k + 1.0]
+        h.advance()
+    assert all(s.is_pinned() for s in h.slots)
+    with pytest.raises(ValueError):
+        h.read(h.issued - slots - 1)
+    h.close()
+    assert h.buffers is None and not h.graphs and not h.slots
 
 
 def test_capture_releases_dead_pools(cuda):
