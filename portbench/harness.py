@@ -1,0 +1,241 @@
+"""One run of one cell: set-up, the measured window, the traced
+sub-window, the comparison with the reference, and the result line.
+
+The window is a closed loop with one client: the next request goes out
+only once the last answer is in host memory.  Requests go out until
+``--seconds`` have passed; the window closes when the last answer
+arrives.  Nothing is built or captured for the first time inside it: the
+set-up made one request of the cell's shape along every direction the
+stream uses.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+from . import blobs, devtrace, spec
+from . import traffic as traffic_mod
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "openimpala_tpu")
+
+
+@dataclasses.dataclass
+class Window:
+    """What the end-to-end readers read."""
+
+    kind: str
+    seconds: float
+    latencies: list  # seconds from call to answer, every request
+    results: int  # tau values or tensors completed
+    peak_bytes: int
+    setup_s: float
+
+
+@dataclasses.dataclass
+class Traced:
+    """What the per-layer readers read: one entry per traced request
+    (``timings``, ``graphs``: the package's graph statistics, ``launches``:
+    its K1 launches by (name, route, extent)) and the trace's reduction."""
+
+    kind: str
+    answers: list
+    trace: dict
+
+
+def forbidden_modules() -> list:
+    return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+
+
+def card_line(torch) -> str:
+    name = torch.cuda.get_device_name(0)
+    try:
+        limit = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip().splitlines()
+    except (OSError, subprocess.TimeoutExpired) as exc:
+        limit = [f"nvidia-smi: {exc}"]
+    return (f"card: {name} x{torch.cuda.device_count()}; power limit "
+            f"{'; '.join(limit)}")
+
+
+def _read(entries, group, what, root):
+    """Each metric's reader on ``what``; a metric it finds nothing for is
+    left out."""
+    out = {}
+    for m in entries:
+        v = spec.reader(group, m["name"], root)(what)
+        if v is not None:
+            out[m["name"]] = {"value": v, "unit": m["unit"]}
+    return out
+
+
+def _sync(torch, device):
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
+             device, t0: float, port=None, root: str = spec.ROOT) -> dict:
+    """The result of one run (the dict printed as the last line);
+    ``port``: the package under test, ``root``: the checkout whose
+    readers it reads."""
+    import torch
+
+    if port is None:
+        import openimpala_tpu_torch as port
+    from openimpala_tpu_torch.ops import stencil_cuda
+    from openimpala_tpu_torch.utils import graphs
+
+    cuda = str(device).startswith("cuda")
+    traffic = traffic_mod.make(cell.traffic, seed)
+    kind = importlib.import_module(f"portbench.kinds.{traffic.kind}")
+    config = cell.config
+    # made on the device, handed to the package as host arrays
+    s0 = time.perf_counter()
+    volumes = [blobs.blobs(traffic.n, p, s, device).cpu().numpy()
+               for p, s in zip(traffic.porosities, traffic.volume_seeds)]
+    s1 = time.perf_counter()
+    for req in traffic.warmup(seed):
+        kind.call(port, volumes[req.volume], req, config, device)
+    _sync(torch, device)
+    print(f"portbench: set-up: imports and device {s0 - t0:.3f} s, volumes "
+          f"{s1 - s0:.3f} s, warm-up {time.perf_counter() - s1:.3f} s",
+          file=sys.stderr, flush=True)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    answered, latencies = [], []
+    start = time.perf_counter()
+    setup_s = start - t0
+    i = 0
+    while True:
+        req = traffic.request(i, seed)
+        i += 1
+        a0 = time.perf_counter()
+        ans = kind.call(port, volumes[req.volume], req, config, device)
+        a1 = time.perf_counter()
+        answered.append((req, ans))
+        latencies.append(a1 - a0)
+        if a1 - start >= seconds:
+            break
+    third = max(1, len(latencies) // 3)
+    # the caching allocator's flushes (a failed cudaMalloc frees the cache
+    # and retries) and what it holds at the close
+    alloc = (f"; allocator retries "
+             f"{torch.cuda.memory_stats().get('num_alloc_retries', 0)}"
+             f", reserved {torch.cuda.memory_reserved() / 1e9:.2f} GB"
+             if cuda else "")
+    print(f"portbench: setup {setup_s:.3f} s, window {a1 - start:.3f} s, "
+          f"{len(answered)} requests; latency s median "
+          f"{np.median(latencies):.4f}, p95 {np.percentile(latencies, 95):.4f}"
+          f", max {max(latencies):.4f} (request {int(np.argmax(latencies))})"
+          f"; median of the first and last third "
+          f"{np.median(latencies[:third]):.4f}, "
+          f"{np.median(latencies[-third:]):.4f}{alloc}", file=sys.stderr,
+          flush=True)
+    window = Window(traffic.kind, a1 - start, latencies,
+                    sum(kind.results(a) for _, a in answered),
+                    torch.cuda.max_memory_allocated() if cuda else 0,
+                    setup_s)
+    attempted = sum(kind.expected(r, traffic) for r, _ in answered)
+    failed = sum(kind.failed(r, a, traffic) for r, a in answered)
+
+    metrics = _read(cell.end_to_end, "end_to_end", window, root)
+    device_info = {"platform": "gpu" if cuda else str(device),
+                   "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
+                   "count": cell.chips, "memory_peak_bytes": window.peak_bytes}
+    breakdown = None
+    if trace:
+        from torch.profiler import record_function
+
+        rows = []
+        with devtrace.traced() as reduced:
+            for j in range(int(traffic.trace["answers"])):
+                req = traffic.request(i + j, seed)
+                graphs.reset_stats()
+                stencil_cuda.reset_counts()
+                timings = {}
+                with record_function(devtrace.ANSWER):
+                    kind.call(port, volumes[req.volume], req, config, device,
+                              timings=timings)
+                    _sync(torch, device)
+                rows.append({"timings": timings, "graphs": dict(graphs.stats),
+                             "launches": dict(stencil_cuda.launches_route_at)})
+        print(f"portbench: traced {len(rows)} requests, "
+              f"{time.perf_counter() - a1:.3f} s after the window",
+              file=sys.stderr, flush=True)
+        metrics = _read(cell.per_layer, "metrics",
+                        Traced(traffic.kind, rows, reduced), root)
+        if reduced:
+            device_info["busy_s"] = reduced["busy_s"]
+            device_info["window_s"] = reduced["window_s"]
+            breakdown = {"device_ops": reduced["device_ops"],
+                         "idle_gaps": reduced["idle_gaps"]}
+
+    # the program's state is gone (answers are host values); the reference
+    # runs on the device in f64, after the peak was read
+    if cuda:
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(blobs.seed_of(seed, traffic_mod.CHECK))
+    c0 = time.perf_counter()
+    readings = kind.compare(answered, volumes, config, traffic, rng, device,
+                            torch.float64)
+    print(f"portbench: reference {time.perf_counter() - c0:.3f} s",
+          file=sys.stderr, flush=True)
+    limits = traffic.check["limits"]
+    checks = {"failed": {"value": failed, "limit": 0}}
+    checks.update({k: {"value": v, "limit": limits[k]}
+                   for k, v in readings.items()})
+    correct = set(readings) == set(limits) and all(
+        c["value"] <= c["limit"] for c in checks.values())
+    out = {"correct": correct, "attempted": attempted, "failed": failed,
+           "metrics": metrics, "device": device_info}
+    if breakdown is not None:
+        out["breakdown"] = breakdown
+    out["checks"] = checks
+    return out
+
+
+def main(t0: float, argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="Run one cell of the port's benchmark once.")
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--seconds", type=float, required=True)
+    ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = ap.parse_args(argv)
+    cell = spec.cell(spec.load(), args.workload)
+
+    import torch
+
+    if not torch.cuda.is_available() or (
+            torch.cuda.device_count() < cell.chips):
+        print(f"portbench: the cell needs {cell.chips} CUDA device(s); "
+              f"this machine has "
+              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
+              file=sys.stderr)
+        return 3
+    print(card_line(torch), file=sys.stderr, flush=True)
+    out = run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda",
+                   t0)
+    found = forbidden_modules()
+    if found:
+        print(f"portbench: the run loaded {', '.join(found)}",
+              file=sys.stderr)
+        return 4
+    print(f"correct: {out['correct']}", file=sys.stderr)
+    for name, c in out["checks"].items():
+        print(f"check {name}: {c['value']!r} (limit {c['limit']!r})",
+              file=sys.stderr)
+    sys.stderr.flush()
+    print(json.dumps(out), flush=True)
+    return 0
