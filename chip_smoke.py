@@ -1121,7 +1121,7 @@ def _log_counts(label, counts, at, plain, routes=None):
             {f"{k} {route} {'x'.join(map(str, shp))}": v
              for (k, route, shp), v in sorted(routes.items())}))
     if at:
-        log(f"main[{label}] k3_k5_launches_by_extent " + json.dumps(
+        log(f"main[{label}] k2_to_k5_launches_by_extent " + json.dumps(
             {f"{k} {'x'.join(map(str, shp))}": v
              for (k, shp), v in sorted(at.items())}))
     log(f"main[{label}] plain_on_cuda " + json.dumps(plain, sort_keys=True))
@@ -1294,7 +1294,7 @@ def _drive_tau(label, vol, n, dx, precond, host_mask=None, opts=None,
     if host_mask is not None:
         require(torch.equal(res.active, host_mask),
                 f"main[{label}]: the mask differs from the host's")
-    at = dict(sc.launches_at)  # (name, extent) -> K3 and K5 launches
+    at = dict(sc.launches_at)  # (name, extent) -> K2 to K5 launches
     routes = _k1_routes()
     log(f"main[{label}] {n}^3 dx={dx} precond={precond} opts={opts}: "
         f"tau={res.value!r} "
@@ -3030,7 +3030,8 @@ def _k3_levels(chk, mg, gen, run, fns, cost):
     with the run's launches at that extent."""
     at = run["at"]
     shapes = {tuple(l.diag.shape) for l in mg.levels}  # each half the last
-    stray = sorted(k for k in at if k[1] not in shapes)
+    stray = sorted(k for k in at
+                   if k[0].startswith("k3_") and k[1] not in shapes)
     require(not stray, f"main[sa]: K3 ran at extents of no level: {stray}")
     per_level = {name: [] for name in _K3}
     for li, lvl in enumerate(mg.levels):

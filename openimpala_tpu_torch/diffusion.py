@@ -171,6 +171,7 @@ def main(argv=None) -> int:
             dist.destroy_process_group()
 
 
+@profiling.request("cli")
 def _run(cfg: DiffusionConfig, dev, t_start: float) -> int:
     mesh = None
     if (dist.is_available() and dist.is_initialized()

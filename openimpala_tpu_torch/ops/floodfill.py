@@ -30,6 +30,7 @@ import torch
 
 from ..parallel.halo import pad_halo
 from ..utils.common import resolve_device
+from ..utils.profiling import phase_timer
 from . import packfill
 
 METHODS = ("host", "native", "device")
@@ -218,29 +219,33 @@ def percolation_mask(phase, phase_id: int, direction: int,
     total = int(np.prod(phase.shape))
 
     if method == "device":
-        phase_ok = _phase_ok(upload_phase(phase, device), phase_id)
-        # empty seed faces need no early-out: they give an empty mask
-        active, n_active, _ = _percolation_device_oneshot(phase_ok,
-                                                          direction)
-        return active, int(n_active) / total
+        with phase_timer(None, "fill_device"):
+            phase_ok = _phase_ok(upload_phase(phase, device), phase_id)
+            # empty seed faces need no early-out: they give an empty mask
+            active, n_active, _ = _percolation_device_oneshot(phase_ok,
+                                                              direction)
+            return active, int(n_active) / total
 
-    phase_np = _as_numpy(phase)
-    if method == "native":
-        from ..io import native
+    with phase_timer(None, "label_host"):  # the host's copy included
+        phase_np = _as_numpy(phase)
+        if method == "native":
+            from ..io import native
 
-        res = native.percolation_mask_phase(phase_np, phase_id, direction)
-        if res is None:  # dtype outside the fused compare
-            res = native.percolation_mask(phase_np == phase_id, direction)
-        active, n_active = res
-        return active, n_active / total
+            res = native.percolation_mask_phase(phase_np, phase_id,
+                                                direction)
+            if res is None:  # dtype outside the fused compare
+                res = native.percolation_mask(phase_np == phase_id,
+                                              direction)
+            active, n_active = res
+            return active, n_active / total
 
-    phase_ok = phase_np == phase_id
-    if (not phase_ok[_face_slices(direction, True)].any()
-            or not phase_ok[_face_slices(direction, False)].any()):
-        return np.zeros(phase_np.shape, bool), 0.0
-    reach_in, reach_out = flood_fill_host(phase_ok, direction)
-    active = reach_in & reach_out
-    return active, float(active.sum()) / total
+        phase_ok = phase_np == phase_id
+        if (not phase_ok[_face_slices(direction, True)].any()
+                or not phase_ok[_face_slices(direction, False)].any()):
+            return np.zeros(phase_np.shape, bool), 0.0
+        reach_in, reach_out = flood_fill_host(phase_ok, direction)
+        active = reach_in & reach_out
+        return active, float(active.sum()) / total
 
 
 def percolation_mask_sharded(phase, phase_id: int, direction: int, mesh,

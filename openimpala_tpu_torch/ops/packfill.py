@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
+
 _FULL = -1  # 0xFFFFFFFF as int32
 _TOP = -(2 ** 31)  # 0x80000000 as int32
 
@@ -249,7 +251,8 @@ def _double_fill(o, seeds_lo, outlet_seeds_fn, max_rounds: int,
     ``outlet_seeds_fn(reach_in)`` returns the packed outlet-plane seeds
     restricted to ``reach_in``; ``carry_in_fn`` and ``changed_fn(new,
     old)`` (the sharded fill's cross the ranks).  Returns ``(active,
-    rounds_total)``."""
+    rounds_total)``; the rounds also add to ``profiling.counters[
+    "fill_rounds"]``."""
     o_cur, r, stage, changed, it = o, seeds_lo, 0, True, 0
     while (changed or stage == 0) and it < 2 * max_rounds + 2:
         new = fill_round(o_cur, r, carry_in_fn)
@@ -261,6 +264,7 @@ def _double_fill(o, seeds_lo, outlet_seeds_fn, max_rounds: int,
             r = new
         changed = ch or done0
         it += 1
+    profiling.counters["fill_rounds"] += it
     return r, it
 
 

@@ -70,9 +70,10 @@ Counters: every launch adds one to ``launches[name]``
 ``k3_<mode>_<f32|f64>``, ``k3_apply_prefix_<f32|f64>``,
 ``k4_matvec[_dot]_<f32|f64>``, ``k5_matvec_<f32|f64>``), and every call of
 a plain form with a CUDA tensor adds one to ``plain_on_cuda[name]``.
-K3 runs on every level of a hierarchy, and K5 on a whole volume or on a
-padded X slab, so their launchers also add one to
-``launches_at[(name, (X, Y, Z))]``: the same launches, split by extent.
+K2, K3 and K4 run on the levels of a hierarchy or on batches, and K5 on a
+whole volume or on a padded X slab, so their launchers also add one to
+``launches_at[(name, extent)]``: the same launches, split by extent
+(``(X, Y, Z)``; ``(B, X, Y, Z)`` for a batch of K4).
 K1's launcher adds one to ``launches_route[(name, route)]`` and to
 ``launches_route_at[(name, route, (X, Y, Z))]``: the same launches, split
 by the route that served them.
@@ -173,7 +174,7 @@ def uncounted():
 
 def _count(name: str, shape=None, route=None):
     """One launch of ``name``; ``route``: K1's; ``shape`` with no route:
-    the extent K3 or K5 ran at."""
+    the extent K2 to K5 ran at."""
     if getattr(_local, "uncounted", False):
         return
     launches[name] += 1
@@ -580,7 +581,7 @@ def k2_conductance(mode: str, x, r, cx, cy, cz, diag, omega: float = 0.9):
              out.data_ptr(), X, Y, Z, float(omega),
              torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, lib, "k2", f"K2 {mode}")
-    _count(f"k2_{mode}_{_DTYPES[x.dtype]}")
+    _count(f"k2_{mode}_{_DTYPES[x.dtype]}", (X, Y, Z))
     return out
 
 
@@ -637,7 +638,8 @@ def k4_matvec(x, diag, free, w, periodic, with_dot: bool = False):
         int(bool(periodic[2])), float(w[0]), float(w[1]), float(w[2]),
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, lib, "k4", "K4 matvec")
-    _count(f"k4_matvec{'_dot' if with_dot else ''}_{_DTYPES[x.dtype]}")
+    _count(f"k4_matvec{'_dot' if with_dot else ''}_{_DTYPES[x.dtype]}",
+           tuple(x.shape))
     return (out, dot) if with_dot else out
 
 

@@ -52,7 +52,7 @@ from ..solve.lanes import (LaneSystem, lanes_pay, solve_system_lanes,
                            use_lanes)
 from ..solve.refine import make_precond, solve_system
 from ..utils.common import count_true, resolve_device
-from ..utils.profiling import phase_timer
+from ..utils.profiling import phase_timer, request
 
 
 def prime_cell_solver(shape, *, dx=(1.0, 1.0, 1.0), method: str = "cg",
@@ -85,6 +85,7 @@ class EffectiveDiffusivityResult:
     lanes: bool = False  # the three solves ran as lockstep lanes
 
 
+@request("effective_diffusivity")
 def effective_diffusivity(
     phase,
     phase_id: int,
@@ -193,8 +194,9 @@ def effective_diffusivity(
                 active = active.to(dev)
                 n_active = count_true(active, mesh)
     else:
-        active_np = phase == phase_id
-        n_active = int(active_np.sum())
+        with phase_timer(None, "host_mask"):
+            active_np = phase == phase_id
+            n_active = int(active_np.sum())
         active = None
     vf = n_active / n_total
     if warm is not None:  # on every path out of this call

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..utils.common import resolve_device
+from ..utils.profiling import phase_timer, request
 from .effective_diffusivity import effective_diffusivity
 
 
@@ -153,6 +154,7 @@ def _write_chi(plotfile_dir, s_no, size, chi, crop):
     })
 
 
+@request("rev_study")
 def rev_study(
     phase: np.ndarray,
     phase_id: int,
@@ -188,7 +190,8 @@ def rev_study(
     phase = np.asarray(phase)
     if rng is None:
         rng = np.random.default_rng(12345 + int(num_samples))
-    boxes = _draw_samples(phase, sizes, num_samples, rng, verbose)
+    with phase_timer(None, "draw"):
+        boxes = _draw_samples(phase, sizes, num_samples, rng, verbose)
 
     groups: dict[tuple, list] = {}
     for idx, (s_no, size, lo, actual) in enumerate(boxes):
@@ -197,44 +200,48 @@ def rev_study(
     results = {}
     dev = resolve_device(solve_kwargs.get("device"))
     for actual, idxs in groups.items():
-        if plotfile_dir is None and _resolve_batch(
-                batch, actual, len(idxs), solve_kwargs, method=method,
-                precond=precond, device=dev):
-            from ..solve.batched import batched_deff
+        with phase_timer(None, "rev_group"):
+            if plotfile_dir is None and _resolve_batch(
+                    batch, actual, len(idxs), solve_kwargs, method=method,
+                    precond=precond, device=dev):
+                from ..solve.batched import batched_deff
 
-            crops = np.stack([_crop(phase, boxes[i][2], actual)
-                              for i in idxs])
-            # the batched solver has its own preconditioner (Chebyshev),
-            # so only the kwargs it understands are forwarded
-            bkw = {k: v for k, v in solve_kwargs.items() if k in (
-                "dx", "group_size", "budget_bytes", "inner_dtype",
-                "outer_dtype", "max_refine_rounds", "inner_round_cap",
-                "cheby_degree", "device")}
-            if bkw.get("inner_dtype", "f32") is None:
-                # explicit batch=True + pure-f64 request: the batched solver
-                # always refines, so run its Krylov in f64 directly
-                bkw["inner_dtype"] = torch.float64
-            deffs, convs = batched_deff(crops, phase_id, eps=eps,
-                                        maxiter=maxiter, **bkw)
-            for j, i in enumerate(idxs):
-                d = deffs[j] if convs[j] else np.full((3, 3), math.nan)
-                results[i] = (d, bool(convs[j]))
-            continue
-        for i in idxs:
-            s_no, size, lo, _ = boxes[i]
-            crop = _crop(phase, lo, actual)
-            # one device per crop, also under a process group: ranks that
-            # call this may differ in plotfile_dir, so in path and fields
-            res = effective_diffusivity(
-                crop, phase_id, eps=eps, maxiter=maxiter, method=method,
-                precond=precond, verbose=max(0, verbose - 1),
-                return_fields=plotfile_dir is not None,
-                **{"mesh": None, **solve_kwargs},
-            )
-            d = res.deff if res.converged else np.full((3, 3), math.nan)
-            results[i] = (np.asarray(d), res.converged)
-            if plotfile_dir is not None and res.chi is not None:
-                _write_chi(plotfile_dir, s_no, size, res.chi, crop)
+                with phase_timer(None, "crop"):
+                    crops = np.stack([_crop(phase, boxes[i][2], actual)
+                                      for i in idxs])
+                # the batched solver has its own preconditioner
+                # (Chebyshev), so only the kwargs it understands are
+                # forwarded
+                bkw = {k: v for k, v in solve_kwargs.items() if k in (
+                    "dx", "group_size", "budget_bytes", "inner_dtype",
+                    "outer_dtype", "max_refine_rounds", "inner_round_cap",
+                    "cheby_degree", "device")}
+                if bkw.get("inner_dtype", "f32") is None:
+                    # explicit batch=True + pure-f64 request: the batched
+                    # solver always refines, so run its Krylov in f64
+                    bkw["inner_dtype"] = torch.float64
+                deffs, convs = batched_deff(crops, phase_id, eps=eps,
+                                            maxiter=maxiter, **bkw)
+                for j, i in enumerate(idxs):
+                    d = deffs[j] if convs[j] else np.full((3, 3), math.nan)
+                    results[i] = (d, bool(convs[j]))
+                continue
+            for i in idxs:
+                s_no, size, lo, _ = boxes[i]
+                crop = _crop(phase, lo, actual)
+                # one device per crop, also under a process group: ranks
+                # that call this may differ in plotfile_dir, so in path and
+                # fields
+                res = effective_diffusivity(
+                    crop, phase_id, eps=eps, maxiter=maxiter, method=method,
+                    precond=precond, verbose=max(0, verbose - 1),
+                    return_fields=plotfile_dir is not None,
+                    **{"mesh": None, **solve_kwargs},
+                )
+                d = res.deff if res.converged else np.full((3, 3), math.nan)
+                results[i] = (np.asarray(d), res.converged)
+                if plotfile_dir is not None and res.chi is not None:
+                    _write_chi(plotfile_dir, s_no, size, res.chi, crop)
 
     out = []
     fh = open(csv_path, "w") if csv_path else None

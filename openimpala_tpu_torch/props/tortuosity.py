@@ -55,7 +55,7 @@ from ..solve import warmup
 from ..solve.cg import ResidualHistory
 from ..solve.refine import solve_system
 from ..utils.common import parse_direction, resolve_device
-from ..utils.profiling import phase_timer
+from ..utils.profiling import phase_timer, request
 
 TINY_FLUX = 1e-15  # reference tiny_flux_threshold, TortuosityHypre.cpp:64
 FLUX_TOL = 1e-6  # reference flux conservation gate, TortuosityHypre.cpp:794
@@ -125,6 +125,7 @@ def prime_solver(shape, direction, *, vlo: float = -1.0, vhi: float = 1.0,
     return warmup.maybe_start(precond, device=device)
 
 
+@request("tortuosity")
 def tortuosity(
     phase,
     phase_id: int,

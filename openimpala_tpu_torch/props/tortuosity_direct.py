@@ -47,6 +47,7 @@ import torch
 
 from ..utils import graphs
 from ..utils.common import parse_direction, resolve_device
+from ..utils.profiling import request
 
 CT_BLOCKED = 0  # Tortuosity_filcc.F90:15-16
 CT_FREE = 1
@@ -199,6 +200,7 @@ def _solve_loop(free, phi0, direction, vlo, vhi, dxinv, dt, eps,
     return phi, it, res, done, flux_in, flux_out
 
 
+@request("tortuosity_direct")
 def tortuosity_direct(
     phase,
     phase_id: int,

@@ -37,6 +37,7 @@ from ..ops.stencil import (
 )
 from ..utils import graphs
 from ..utils.common import resolve_device
+from ..utils.profiling import phase_timer
 from .preconditioners import ChebyshevPreconditioner, JacobiPreconditioner
 
 _VOL = (1, 2, 3)  # the volume axes of a (B, X, Y, Z) stack
@@ -193,9 +194,10 @@ def _cell_problems(masks, direction_k, eps, maxiter, dx, inner_dtype,
         # reduction factor is requested, with a 0.3 safety margin
         need = float(eps / worst) * 0.3 if worst > 0 else 1e-5
         round_eps = min(max(1e-5, need), 0.099)
-        z, iters, _ = _batched_cg(systems, r_lo, ones, round_eps,
-                                  min(budget, int(inner_round_cap)), M,
-                                  _graph=graph)
+        with phase_timer(None, "solve/krylov"):
+            z, iters, _ = _batched_cg(systems, r_lo, ones, round_eps,
+                                      min(budget, int(inner_round_cap)), M,
+                                      _graph=graph)
         z_total = z_total + _lanes(safe) * z.to(outer_dtype)
         budget -= int(iters.max())
         del z, r_lo
@@ -253,23 +255,27 @@ def batched_deff(crops, phase_id: int, eps: float = 1e-9,
     dev = resolve_device(device)
     crops = np.asarray(crops)
     B = crops.shape[0]
-    G = _auto_group_size(crops.shape[1:], group_size, budget_bytes, dev)
+    with phase_timer(None, "solve/group_size"):
+        G = _auto_group_size(crops.shape[1:], group_size, budget_bytes, dev)
     deffs = np.zeros((B, 3, 3))
     convs = np.zeros((B,), bool)
     n_total = int(np.prod(crops.shape[1:]))
     for g0 in range(0, B, G):
         g1 = min(B, g0 + G)
-        masks = torch.from_numpy(crops[g0:g1] == phase_id).to(dev)
+        with phase_timer(None, "solve/upload"):
+            masks = torch.from_numpy(crops[g0:g1] == phase_id).to(dev)
+            conv = torch.ones((g1 - g0,), dtype=torch.bool, device=dev)
         chis = []
-        conv = torch.ones((g1 - g0,), dtype=torch.bool, device=dev)
         for k in range(3):
-            chi_k, rel, ck = batched_cell_problems(masks, k, eps, maxiter,
-                                                   dx, **kw)
+            with phase_timer(None, "solve/cell_problem"):
+                chi_k, rel, ck = batched_cell_problems(masks, k, eps,
+                                                       maxiter, dx, **kw)
             chis.append(chi_k)
             conv = conv & ck
-        sums = deff_integrand_sum(chis[0], chis[1], chis[2], masks, dx)
-        deffs[g0:g1] = sums.cpu().numpy() / n_total
-        convs[g0:g1] = conv.cpu().numpy()
+        with phase_timer(None, "solve/readback"):
+            sums = deff_integrand_sum(chis[0], chis[1], chis[2], masks, dx)
+            deffs[g0:g1] = sums.cpu().numpy() / n_total
+            convs[g0:g1] = conv.cpu().numpy()
         del chis, sums, masks
         if verbose:
             print(f"  REV batch group {g0}-{g1 - 1}: "

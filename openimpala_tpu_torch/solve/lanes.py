@@ -288,9 +288,11 @@ def _solve_lanes(lsys, eps, maxiter, precond, inner_dtype, inner_eps,
 
     if inner_dtype is None or inner_dtype == outer_dtype:
         r0 = lsys.initial_residual(torch.zeros_like(lsys.r0_b))
-        res = cg_lanes(lsys, r0, lsys.b_norm, eps, maxiter,
-                       make_precond(lsys.base(), precond, precond_opts),
-                       verbose=verbose, history=history, _graph=graph)
+        with phase_timer(None, "solve/hierarchy_build"):
+            M = make_precond(lsys.base(), precond, precond_opts)
+        with phase_timer(None, "solve/krylov"):
+            res = cg_lanes(lsys, r0, lsys.b_norm, eps, maxiter, M,
+                           verbose=verbose, history=history, _graph=graph)
         return lsys.assemble_solution(res.z), res
 
     if storage_dtype != inner_dtype:
@@ -343,11 +345,13 @@ def _solve_lanes(lsys, eps, maxiter, precond, inner_dtype, inner_eps,
         with phase_timer(timings, "solve/inner_round", dev):
             if history is not None:
                 history._base = int(total_iters.max())
-            inner = cg_lanes(lsys, r_lo,
-                             torch.ones((L,), dtype=inner_dtype, device=dev),
-                             round_eps, min(budget, int(inner_round_cap)),
-                             M_lo, verbose=verbose, history=history,
-                             _graph=graph)
+            with phase_timer(None, "solve/krylov"):
+                inner = cg_lanes(lsys, r_lo,
+                                 torch.ones((L,), dtype=inner_dtype,
+                                            device=dev),
+                                 round_eps, min(budget, int(inner_round_cap)),
+                                 M_lo, verbose=verbose, history=history,
+                                 _graph=graph)
             del r_lo
             z_total = _accumulate_lanes(z_total, scale, inner.z)
             n_it = inner.iterations.cpu().numpy().astype(np.int64)

@@ -161,10 +161,12 @@ def _solve_system(system, x0_free, eps, maxiter, method, precond,
 
     if inner_dtype is None or inner_dtype == outer_dtype:
         r0 = system.initial_residual(x0_free.to(storage_dtype))
-        res = _krylov(method, system, r0, system.b_norm, eps, maxiter,
-                      make_precond(system, precond, precond_opts),
-                      refined=False, verbose=verbose, history=history,
-                      _graph=graph)
+        with phase_timer(None, "solve/hierarchy_build"):
+            M = make_precond(system, precond, precond_opts)
+        with phase_timer(None, "solve/krylov"):
+            res = _krylov(method, system, r0, system.b_norm, eps, maxiter,
+                          M, refined=False, verbose=verbose,
+                          history=history, _graph=graph)
         x_full = system.assemble_solution(x0_free + res.z)
         return x_full, res
 
@@ -214,11 +216,13 @@ def _solve_system(system, x0_free, eps, maxiter, method, precond,
         with phase_timer(timings, "solve/inner_round", device):
             if history is not None:
                 history._base = total_iters
-            inner = _krylov(method, system, r_lo,
-                            torch.ones((), dtype=inner_dtype, device=device),
-                            round_eps, min(budget, int(inner_round_cap)),
-                            M_lo, refined=True, verbose=verbose,
-                            history=history, _graph=graph)
+            with phase_timer(None, "solve/krylov"):
+                inner = _krylov(method, system, r_lo,
+                                torch.ones((), dtype=inner_dtype,
+                                           device=device),
+                                round_eps, min(budget, int(inner_round_cap)),
+                                M_lo, refined=True, verbose=verbose,
+                                history=history, _graph=graph)
             z_total = _accumulate(z_total, scale, inner.z)
             n_it = int(inner.iterations)
             total_iters += n_it

@@ -43,6 +43,8 @@ import time
 
 import torch
 
+from ..utils import profiling
+
 
 def warm_kernels(precond) -> tuple:
     """The kernels (``stencil_cuda.SOURCES`` names) a solve with
@@ -114,7 +116,8 @@ class SolverWarmup:
 
     def _run(self, kernels, device):
         try:
-            _warm(kernels, device, self.timing)
+            with profiling.root("warmup"):
+                _warm(kernels, device, self.timing)
         except BaseException as e:  # kept for join()
             self.error = e
 

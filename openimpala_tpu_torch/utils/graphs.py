@@ -77,6 +77,7 @@ import time
 import torch
 
 from ..ops import stencil_cuda as sc
+from .profiling import phase_timer
 
 # Steps a graphed PCG loop keeps enqueued behind the step whose probe the
 # host reads, so the card does not wait for the host's read and its next
@@ -234,14 +235,16 @@ class ChunkGraph:
         would synchronise and empty the cache), since the capture runs no
         kernel and its replays are ordered after the eager call on the
         caller's stream.  Returns (graph, outputs, launch counts)."""
-        try:
+        with phase_timer(None, "solve/capture"):
+            try:
+                return self._record(name)
+            except torch.OutOfMemoryError:
+                pass
+            # out of memory: dead graphs' pools and the cache hold it,
+            # which a capture cannot release (the failed graph is gone by
+            # now)
+            torch.cuda.empty_cache()
             return self._record(name)
-        except torch.OutOfMemoryError:
-            pass
-        # out of memory: dead graphs' pools and the cache hold it, which a
-        # capture cannot release (the failed graph is gone by now)
-        torch.cuda.empty_cache()
-        return self._record(name)
 
     def _record(self, name):
         before = sc.snapshot_counts()
@@ -265,10 +268,11 @@ class ChunkGraph:
         """Wait for the last step enqueued (the steps in flight copy into
         the pinned slots), then drop the graphs, their outputs, the slots
         and the static buffers."""
-        if self.issued:
-            self.events[(self.issued - 1) % len(self.slots)].synchronize()
-        self.graphs, self.fns, self.buffers = {}, {}, None
-        self.slots, self.events, self.issued = [], [], 0
+        with phase_timer(None, "solve/graph_close"):
+            if self.issued:
+                self.events[(self.issued - 1) % len(self.slots)].synchronize()
+            self.graphs, self.fns, self.buffers = {}, {}, None
+            self.slots, self.events, self.issued = [], [], 0
 
 
 def iterate(holder, step, probe, maxiter: int, stop):

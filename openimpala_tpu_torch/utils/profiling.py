@@ -3,18 +3,32 @@
 scopes and ``amrex::second()`` wall clocks, ``TortuosityHypre.cpp:250,303,
 399,564,655,897,1002``, ``Diffusion.cpp:176,737-740``).
 
-Two tiers:
-
-* ``phase_timer(timings, name, device)``: a named scope.  It adds its wall
-  seconds to the caller's ``timings`` dict (when one is passed) and to the
-  process-wide per-phase table (when profiling is enabled:
-  ``OPENIMPALA_PROFILE=1`` at import, or ``enable(True)``; ``report()``
-  prints it, ``reset()`` clears it).  On a CUDA ``device`` a timed scope is
+* ``phase_timer(timings, name, device)``: a named scope, the one span API
+  of the package.  It adds its wall seconds to the caller's ``timings``
+  dict (when one is passed; on a CUDA ``device`` the scope is then
   bracketed by synchronisations, so its time covers the device work it
-  queued.  On a machine with a card every scope is also an NVTX range,
-  which a device trace shows as the phase's span (the counterpart of
-  ``jax.named_scope``).  With no ``timings``, profiling off and no card,
-  the scope costs nothing.
+  queued) and to the process-wide per-phase table (when profiling is
+  enabled: ``OPENIMPALA_PROFILE=1`` at import, or ``enable(True)``;
+  ``report()`` prints it, ``reset()`` clears it).  While a
+  ``torch.profiler`` records, the scope is also a ``record_function``
+  range named ``oi/<layer>/<name>`` (a ``name`` without a layer is in
+  ``props``), so the device trace shows each span on its own clock, and
+  ``torch.autograd.profiler.emit_nvtx()`` turns the ranges into NVTX
+  ranges for ``nsys``.  With no ``timings``, profiling off and no
+  profiler recording, a scope costs one boolean test.
+* ``request(entry)``: the decorator of the public entry points.  A call
+  from outside any other is a request: its root span is
+  ``oi/request/<entry>#<n>`` (``n`` counts the process's requests), and
+  its spans nest under it, thread by thread.  A call made inside another
+  entry point is a child span, ``oi/props/<entry>``.  While a profiler
+  records or profiling is enabled, each request closed leaves a record
+  in ``requests``: its seconds, the calls and seconds of each span under
+  it, and what ``counters`` gained over it.
+* ``counters``: ``fill_rounds``, the rounds of every packed percolation
+  fill (``ops/packfill.py``, counted always); ``alloc_segments``, the
+  caching allocator's ``cudaMalloc`` calls (``segment.all.allocated``)
+  over each request, read only while a profiler records or profiling is
+  enabled.  ``reset_counters()`` clears them.
 * ``device_trace(logdir)``: ``torch.profiler`` over the block (CPU and,
   where there is a card, CUDA activities), written as a Chrome trace into
   ``logdir``.
@@ -22,15 +36,28 @@ Two tiers:
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
+import itertools
 import os
+import threading
 import time
 from collections import defaultdict
 
 import torch
+from torch.autograd import profiler as _prof
 
 _ENABLED = os.environ.get("OPENIMPALA_PROFILE", "0") == "1"
 _TABLE: dict[str, list] = defaultdict(lambda: [0, 0.0])  # name -> [calls, s]
+
+counters: collections.Counter = collections.Counter()
+# one record per request closed while a profiler recorded or profiling was
+# enabled, newest last
+requests: collections.deque = collections.deque(maxlen=256)
+_local = threading.local()  # .request: the record of this thread's request
+_ordinal = itertools.count(1)
+_NULL = contextlib.nullcontext()
 
 
 def enable(on: bool = True):
@@ -38,37 +65,131 @@ def enable(on: bool = True):
     _ENABLED = bool(on)
 
 
-@contextlib.contextmanager
-def phase_timer(timings: dict | None, name: str, device=None):
-    """Add the wall seconds of the block to ``timings[name]`` (when
-    ``timings`` is a dict) and to the per-phase table (when profiling is
-    enabled); mark it as an NVTX range where the machine has a card."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        if timings is None and not _ENABLED:
-            yield
-            return
-        cuda = device is not None and torch.device(device).type == "cuda"
-        if cuda:
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
+def reset_counters():
+    counters.clear()
+
+
+class _Span:
+    """An open scope (``phase_timer``, ``request``, ``root``)."""
+
+    __slots__ = ("name", "key", "timings", "device", "range", "t0")
+
+    def __init__(self, name, key, timings=None, device=None):
+        self.name, self.key = name, key
+        self.timings, self.device = timings, device
+        self.range = None
+
+    def __enter__(self):
+        if _prof._is_profiler_enabled:
+            self.range = _prof.record_function(self.name)
+            self.range.__enter__()
+        self._sync()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
         try:
-            yield
-        finally:
-            if cuda:
-                torch.cuda.synchronize(device)
-            dt = time.perf_counter() - t0
-            if timings is not None:
-                timings[name] = timings.get(name, 0.0) + dt
+            self._sync()
+            dt = time.perf_counter() - self.t0
+            if self.timings is not None:
+                self.timings[self.key] = self.timings.get(self.key, 0.0) + dt
             if _ENABLED:
-                row = _TABLE[name]
+                row = _TABLE[self.key]
                 row[0] += 1
                 row[1] += dt
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+            self._close(dt)
+        finally:
+            if self.range is not None:
+                self.range.__exit__(*exc)
+
+    def _sync(self):
+        # a timed scope covers the device work it queued
+        if (self.device is not None
+                and (self.timings is not None or _ENABLED)
+                and torch.device(self.device).type == "cuda"):
+            torch.cuda.synchronize(self.device)
+
+    def _close(self, dt):
+        record = getattr(_local, "request", None)
+        if record is not None:
+            row = record["spans"].setdefault(self.name, [0, 0.0])
+            row[0] += 1
+            row[1] += dt
+
+
+class _Request(_Span):
+    """A public entry point's call: a request's root where no request is
+    open on this thread, else a child span."""
+
+    __slots__ = ("record", "before")
+
+    def __init__(self, entry: str):
+        self.record = None
+        if getattr(_local, "request", None) is not None:
+            super().__init__(f"oi/props/{entry}", entry)
+            return
+        n = next(_ordinal)
+        super().__init__(f"oi/request/{entry}#{n}", f"request/{entry}")
+        self.record = {"entry": entry, "ordinal": n, "s": 0.0, "spans": {},
+                       "counters": {}}
+
+    def __enter__(self):
+        if self.record is not None:
+            self.before = (counters["fill_rounds"], _alloc_segments())
+            _local.request = self.record
+        return super().__enter__()
+
+    def _close(self, dt):
+        if self.record is None:
+            super()._close(dt)
+            return
+        _local.request = None
+        gained = {"fill_rounds": counters["fill_rounds"] - self.before[0],
+                  "alloc_segments": _alloc_segments() - self.before[1]}
+        counters["alloc_segments"] += gained["alloc_segments"]
+        self.record.update(s=dt, counters=gained)
+        requests.append(self.record)
+
+
+def _alloc_segments() -> int:
+    """The caching allocator's ``cudaMalloc`` calls so far on the current
+    device (0 where CUDA is not started)."""
+    if not torch.cuda.is_initialized():
+        return 0
+    return int(torch.cuda.memory_stats().get("segment.all.allocated", 0))
+
+
+def phase_timer(timings: dict | None, name: str, device=None):
+    """A scope named ``name`` (module docstring): its wall seconds go to
+    ``timings[name]`` (when ``timings`` is a dict; synchronised on a CUDA
+    ``device``) and to the per-phase table (when profiling is enabled);
+    while a profiler records it is the range ``oi/<name>``, or
+    ``oi/props/<name>`` where ``name`` names no layer."""
+    if timings is None and not (_ENABLED or _prof._is_profiler_enabled):
+        return _NULL
+    span = f"oi/{name}" if "/" in name else f"oi/props/{name}"
+    return _Span(span, name, timings, device)
+
+
+def request(entry: str):
+    """Decorate the public entry point ``entry`` (module docstring)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not (_ENABLED or _prof._is_profiler_enabled):
+                return fn(*args, **kwargs)
+            with _Request(entry):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def root(name: str):
+    """A root span ``oi/<name>`` of work that is no request (the solver
+    warm-up's thread); it leaves no record."""
+    if not (_ENABLED or _prof._is_profiler_enabled):
+        return _NULL
+    return _Span(f"oi/{name}", name)
 
 
 @contextlib.contextmanager
