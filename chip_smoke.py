@@ -14,9 +14,12 @@ Phases (each failure exits non-zero and prints no result line):
                surface (each subpackage's ``__all__`` and the root's)
                must resolve;
 2. kernels   - every K1 mode (matvec, matvec+dot, resid, sweep, restrict)
-               in float32 and float64 and both K2 modes, held against their
-               plain PyTorch versions on odd, restrict-eligible, periodic and
-               anisotropic systems; the fused dot must repeat bit for bit.
+               in float32 and float64 and every K2 mode (matvec, sweep,
+               cheby, cheby_init), held against their plain PyTorch
+               versions on odd, restrict-eligible, periodic and anisotropic
+               systems; the fused dot must repeat bit for bit, and K2's
+               cheby modes must equal the unfused sequence (K2 matvec and
+               PyTorch's elementwise kernels) bit for bit.
                K1 again at the seams of its two routes (``K1_SEAMS``): the
                general route on extents of 1 to 3 and on rows that are not
                whole 16-byte vectors, the stream route on ragged tiles,
@@ -278,6 +281,10 @@ K1_SRC = "openimpala_tpu_torch/csrc/k1_stencil.cu"
 K2_SRC = "openimpala_tpu_torch/csrc/k2_conductance.cu"
 K1_TPU = "openimpala_tpu/ops/stencil_pallas.py:815"
 K2_TPU = "openimpala_tpu/ops/stencil_pallas.py:757"
+# K2's cheby modes replace no Pallas kernel: they fuse the loop body of the
+# JAX package's Chebyshev iteration, which runs around K2's kernel
+K2_CHEBY_TPU = ("openimpala_tpu/solve/preconditioners.py:657 "
+                "(_smooth_cheby's loop body)")
 K3_SRC = "openimpala_tpu_torch/csrc/k3_offset.cu"
 K3_TPU = "openimpala_tpu/ops/offset_pallas.py:170"
 K4_SRC = "openimpala_tpu_torch/csrc/k4_matvec.cu"
@@ -304,6 +311,8 @@ PATH_KERNELS = {
     "k1_matvec_f64": _k1("matvec", torch.float64),
     "k2_matvec_f32": (K2_SRC, K2_TPU, 24.0, 16, torch.float32),
     "k2_sweep_f32": (K2_SRC, K2_TPU, 28.0, 20, torch.float32),
+    "k2_cheby_f32": (K2_SRC, K2_CHEBY_TPU, 40.0, 22, torch.float32),
+    "k2_cheby_init_f32": (K2_SRC, K2_CHEBY_TPU, 20.0, 4, torch.float32),
     "k3_apply_f32": (K3_SRC, K3_TPU, None, None, torch.float32),
     "k3_apply_prefix_f32": (K3_SRC, K3_TPU, None, None, torch.float32),
     "k3_resid_f32": (K3_SRC, K3_TPU, None, None, torch.float32),
@@ -314,7 +323,7 @@ PATH_KERNELS = {
     "k5_matvec_f32": (K5_SRC, K5_TPU, 13.0, 10, torch.float32),
 }
 _K1 = ("k1_matvec_dot_f32", "k1_matvec_f32", "k1_sweep_f32", "k1_matvec_f64")
-_K2 = ("k2_matvec_f32", "k2_sweep_f32")
+_K2 = ("k2_matvec_f32", "k2_sweep_f32", "k2_cheby_f32", "k2_cheby_init_f32")
 _K3 = ("k3_apply_f32", "k3_apply_prefix_f32", "k3_resid_f32", "k3_sweep_f32")
 _K4 = ("k4_matvec_dot_f32", "k4_matvec_f32", "k4_matvec_f64")
 _ISO = (1.0, 1.0, 1.0)
@@ -330,8 +339,10 @@ _ISO = (1.0, 1.0, 1.0)
 # the fine one down to 4^3 and no K2.  The three "gmg-*" paths are the
 # default cycle with one option each: trilinear transfers (K1 resid, then
 # the restriction as tensor code), the W-cycle (K2 twice per visit down to
-# w_depth), the Chebyshev smoother (K1 and K2 apply their operators; no
-# sweep kernel runs).  "cli" is the port's CLI on a RAW file, solver_type =
+# w_depth), the Chebyshev smoother (K1 applies its operator, K2 runs its
+# cheby steps; no sweep kernel runs).  Every Galerkin path solves its
+# coarsest level with K2's cheby steps (one launch a step, no K2 matvec
+# there).  "cli" is the port's CLI on a RAW file, solver_type =
 # GMRES: FGMRES with the default cycle, K1 matvec per Arnoldi step.
 # "deff" is ``effective_diffusivity``: the default cycle on three periodic
 # systems.  "rev" is ``rev_study``: the batched solver, K4 over the lanes.
@@ -350,7 +361,8 @@ PATHS = {
               _K1 + _K2 + ("k1_restrict_f32",)),
     "gmg-cheby": ("tau", _ISO, "auto", {"smoother": "cheby"},
                   ("k1_matvec_dot_f32", "k1_matvec_f32", "k1_matvec_f64",
-                   "k1_restrict_f32", "k2_matvec_f32")),
+                   "k1_restrict_f32", "k2_matvec_f32", "k2_cheby_f32",
+                   "k2_cheby_init_f32")),
     "cli": ("cli", _ISO, "auto", None,
             ("k1_matvec_f32", "k1_sweep_f32", "k1_restrict_f32",
              "k1_matvec_f64") + _K2),
@@ -623,7 +635,48 @@ def check_k2(chk, level, gen, case):
               sc.k2_conductance("sweep", x, r, level.cx, level.cy, level.cz,
                                 level.diag, omega=0.9),
               level.sweep_plain(x, r, 0.9), dtype, case)
+    check_k2_cheby(chk, level, x, r, case, scale)
     return x, r
+
+
+def _cheby_unfused(level, res, d, x, c1, c2, init):
+    """One Chebyshev step as K2 matvec and PyTorch's elementwise kernels
+    (seven launches; the zero start: res = r - A 0, d = inv_d*res*c1,
+    x = 0 + d): what K2's cheby modes fuse."""
+    diag = level.diag
+    inv_d = torch.where(level.free & (diag > 0),
+                        1.0 / torch.where(diag > 0, diag, 1.0),
+                        torch.zeros((), dtype=diag.dtype, device=diag.device))
+    if init:
+        zero = torch.zeros_like(res)
+        res = res - level.apply(zero)
+        d = inv_d * res * c1
+        return res, d, zero + d
+    res = res - level.apply(d)
+    d = c1 * d + c2 * (inv_d * res)
+    return res, d, x + d
+
+
+def check_k2_cheby(chk, level, x, r, case, scale):
+    """K2's cheby and cheby_init modes against their plain forms, and to
+    the bit against the unfused sequence on the card."""
+    dtype = level.diag.dtype
+    tag = _tag(dtype)
+    ft = np.float32 if dtype == torch.float32 else np.float64
+    c0, c1, c2 = (float(ft(v)) for v in (0.9, 1.05, 0.48))
+    got = level.cheby_init(r, c0)
+    for g, p in zip(got, level.cheby_init_plain(r, c0)):
+        chk.close(f"k2_cheby_init_{tag}", g, p, dtype, case)
+    want = _cheby_unfused(level, r, None, None, c0, None, True)
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"k2_cheby_init_{tag} [{case}]: not the unfused sequence's bits")
+    state = (r, x, x * 0.5)
+    got = level.cheby_step(*(t.clone() for t in state), c1, c2)
+    for g, p in zip(got, level.cheby_step_plain(*state, c1, c2)):
+        chk.close(f"k2_cheby_{tag}", g, p, dtype, case, scale=scale)
+    want = _cheby_unfused(level, *state, c1, c2, False)
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"k2_cheby_{tag} [{case}]: not the unfused sequence's bits")
 
 
 def synthetic_offset_level(rng, shape, taps, dtype, device):
@@ -1938,6 +1991,8 @@ def phase_main(vol, n, host_mask):
             run = _drive_rev(label, vol, n, dx)
         missing = [k for k in expect if run["counts"].get(k, 0) == 0]
         require(not missing, f"main[{label}]: never launched: {missing}")
+        if "k2_cheby_f32" in expect and run["at"]:
+            _require_fused_coarse(label, run["at"])
         require(not run["plain"], f"main[{label}]: plain versions ran on "
                                   f"CUDA tensors: {run['plain']}")
         _require_stream_route(label, run)
@@ -1959,6 +2014,27 @@ def phase_main(vol, n, host_mask):
     return runs
 
 
+def _require_fused_coarse(label, at):
+    """The coarsest level's Chebyshev solves ran as K2 cheby steps: per
+    zero-start step, ``coarse_sweeps - 1`` cheby launches at the coarsest
+    extent (the smallest that ran cheby_init), and no K2 matvec there."""
+    from openimpala_tpu_torch.solve.preconditioners import (
+        GalerkinMGPreconditioner)
+
+    inits = {e: v for (k, e), v in at.items() if k == "k2_cheby_init_f32"}
+    coarsest = min(inits, key=lambda e: int(np.prod(e)))
+    kw = {}
+    GalerkinMGPreconditioner._coarse_defaults(kw, coarsest)
+    steps = at.get(("k2_cheby_f32", coarsest), 0)
+    want = (kw["coarse_sweeps"] - 1) * inits[coarsest]
+    matvecs = at.get(("k2_matvec_f32", coarsest), 0)
+    log(f"main[{label}] coarsest {coarsest}: {inits[coarsest]} solves, "
+        f"{steps} K2 cheby steps, {matvecs} K2 matvecs")
+    require(steps == want and not matvecs,
+            f"main[{label}]: at the coarsest extent {coarsest} {steps} K2 "
+            f"cheby steps for {want}, {matvecs} K2 matvecs")
+
+
 SHARDED_RANKS = 4
 SHARDED_TIMEOUT = 900.0  # seconds for the whole world, start-up included
 # the two smaller volumes of the sharded phase: slabs of 25 planes (odd),
@@ -1966,7 +2042,8 @@ SHARDED_TIMEOUT = 900.0  # seconds for the whole world, start-up included
 SHARDED_SMALL = {"odd100": (100, 100), "padded": (256, 254)}
 # what every rank must launch on the 512^3 solve
 SHARDED_KERNELS = ("k1_matvec_dot_f32", "k1_sweep_f32", "k1_restrict_f32",
-                   "k1_matvec_f64", "k2_matvec_f32", "k2_sweep_f32")
+                   "k1_matvec_f64", "k2_matvec_f32", "k2_sweep_f32",
+                   "k2_cheby_f32")
 _TAU_KEYS = ("value", "active_vf", "iterations", "rel_res", "flux_in",
              "flux_out", "flux_rel_diff", "converged", "flux_conserved",
              "percolation_method")
@@ -2981,21 +3058,108 @@ def _k1_fns(system, x, r, **plan):
 
 def _k2_fns(levels):
     """K2 on a path's Galerkin levels, each ``(level, x, r)``: the sweep
-    runs on level 1 only; the matvec once per V-cycle on level 1 and about
-    coarse_sweeps times on the coarsest level, where it is timed."""
+    and the matvec (the residual it restricts, once per V-cycle) run on
+    level 1, where they are timed; the cheby step runs coarse_sweeps - 1
+    times per V-cycle on the coarsest level after its zero start, where
+    both are timed (the step updates its own ``res`` and ``x`` in place
+    on every call)."""
     from openimpala_tpu_torch.ops import stencil_cuda as sc
 
-    (l1, x1, r1), (lc, xc, _) = levels[0], levels[-1]
+    (l1, x1, r1), (lc, xc, rc) = levels[0], levels[-1]
+    c0, c1, c2 = CHEBY_C
+    d, res, xs, spare = xc * 0.5, rc.clone(), xc.clone(), torch.empty_like(xc)
     return {
         "k2_sweep_f32": (
             lambda: sc.k2_conductance("sweep", x1, r1, l1.cx, l1.cy, l1.cz,
                                       l1.diag, omega=0.9),
             lambda: l1.sweep_plain(x1, r1, 0.9), tuple(l1.diag.shape)),
         "k2_matvec_f32": (
-            lambda: sc.k2_conductance("matvec", xc, None, lc.cx, lc.cy, lc.cz,
-                                      lc.diag),
-            lambda: lc.apply_plain(xc), tuple(lc.diag.shape)),
+            lambda: sc.k2_conductance("matvec", x1, None, l1.cx, l1.cy, l1.cz,
+                                      l1.diag),
+            lambda: l1.apply_plain(x1), tuple(l1.diag.shape)),
+        "k2_cheby_f32": (
+            lambda: sc.k2_cheby(d, res, xs, lc.cx, lc.cy, lc.cz, lc.diag, c1,
+                                c2, out=spare),
+            lambda: lc.cheby_step_plain(rc, d, xc, c1, c2),
+            tuple(lc.diag.shape)),
+        "k2_cheby_init_f32": (
+            lambda: sc.k2_cheby_init(rc, lc.diag, c0),
+            lambda: lc.cheby_init_plain(rc, c0), tuple(lc.diag.shape)),
     }
+
+
+# (c0, c1, c2) of the timed cheby steps: values of float32 (and float64)
+CHEBY_C = (float(np.float32(0.9)), float(np.float32(1.05)),
+           float(np.float32(0.48)))
+
+
+def _times_k2_cheby(levels, seed):
+    """K2's cheby step and its zero start on coarsest levels, each from a
+    CUDA graph beside its bound (40 / 20 B a cell in float32, 80 / 40 in
+    float64) and the unfused step's seven launches (K2 matvec and six
+    elementwise kernels), whose result it must equal to the bit."""
+    from openimpala_tpu_torch.ops import stencil_cuda as sc
+
+    rows = []
+    c0, c1, c2 = CHEBY_C
+    for lvl in levels:
+        dtype = lvl.diag.dtype
+        shape = tuple(lvl.diag.shape)
+        gen = torch.Generator(device=lvl.diag.device).manual_seed(seed)
+        r, x = (torch.where(lvl.free, torch.randn(
+            shape, generator=gen, dtype=dtype, device=lvl.diag.device), 0.0)
+            for _ in range(2))
+        d = x * 0.5
+        res, xs, spare = r.clone(), x.clone(), torch.empty_like(x)
+        got = lvl.cheby_step(res.clone(), d, xs.clone(), c1, c2)
+        want = _cheby_unfused(lvl, r, d, x, c1, c2, False)
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"k2_cheby {shape} {dtype}: not the unfused step's bits")
+        del got, want
+        field = np.prod(shape) * (4 if dtype == torch.float32 else 8)
+        row = {
+            "shape": list(shape), "dtype": _tag(dtype),
+            "ms": graph_ms(lambda: sc.k2_cheby(d, res, xs, lvl.cx, lvl.cy,
+                                               lvl.cz, lvl.diag, c1, c2,
+                                               out=spare)),
+            "bound_ms": 10 * field / PEAK_BYTES_S * 1e3,
+            "init_ms": graph_ms(lambda: sc.k2_cheby_init(r, lvl.diag,
+                                                         c0)),
+            "init_bound_ms": 5 * field / PEAK_BYTES_S * 1e3,
+            "unfused_ms": graph_ms(lambda: _cheby_unfused(
+                lvl, r, d, x, c1, c2, False)),
+            "unfused_bound_ms": 22 * field / PEAK_BYTES_S * 1e3,
+        }
+        row["pct_of_bound"] = 100 * row["bound_ms"] / row["ms"]
+        row["init_pct_of_bound"] = 100 * row["init_bound_ms"] / row["init_ms"]
+        rows.append(row)
+        log(f"times k2_cheby {shape} {row['dtype']}: {row['ms']:.4f} ms "
+            f"graph, bound {row['bound_ms']:.4f} ms "
+            f"({row['pct_of_bound']:.1f} %); init {row['init_ms']:.4f} ms, "
+            f"bound {row['init_bound_ms']:.4f} ms "
+            f"({row['init_pct_of_bound']:.1f} %); unfused seven launches "
+            f"{row['unfused_ms']:.4f} ms (bound {row['unfused_bound_ms']:.4f})")
+        del r, x, d, res, xs, spare
+    log("k2_cheby " + json.dumps(rows))
+    return rows
+
+
+def _cheby_timing_levels(mg, mask):
+    """The levels ``_times_k2_cheby`` times: the cycle's coarsest in
+    float32 and float64 (128^3 at 512^3), and the coarsest of the cycle
+    on the mask's first 128^3 (32^3) in float32."""
+    from openimpala_tpu_torch.ops.stencil import make_tortuosity_system
+    from openimpala_tpu_torch.solve.preconditioners import ConductanceLevel
+    from openimpala_tpu_torch.solve.refine import make_precond
+
+    lc = mg.levels[-1]
+    lc64 = ConductanceLevel(*(t.double() for t in (lc.diag, lc.cx, lc.cy,
+                                                   lc.cz)))
+    crop = mask[:128, :128, :128].contiguous()
+    small = make_precond(make_tortuosity_system(crop, 0, -1.0, 1.0,
+                                                dtype=torch.float32),
+                         "auto").levels[-1]
+    return [lc, lc64, small]
 
 
 def _k3_fns(lvl, x, r):
@@ -3378,6 +3542,9 @@ def phase_times(chk, vol, seed, runs):
                          for li, lvl in enumerate(mg.levels)]
             fns.update(_k2_fns(k2_levels))
             del k2_levels
+            if label == "iso":
+                cheby_rows = _times_k2_cheby(
+                    _cheby_timing_levels(mg, runs["iso"]["mask"]), seed + 2)
         _time_path_kernels(by_path, label, expect, fns, runs[label], cost,
                            levels,
                            general=_k1_fns(system, x, r, route="general"))
@@ -3414,6 +3581,8 @@ def phase_times(chk, vol, seed, runs):
         if "k1_route" in t:
             entry["k1_route"] = t["k1_route"]
             entry["general_route_ms"] = t["general_route_ms"]
+        if name == "k2_cheby_f32":
+            entry["fused_and_unfused"] = cheby_rows
         kernels.append(entry)
         log(f"times {name}: {entry['ms']:.4f} ms on {main_label} "
             f"{tuple(t['shape'])}, bound {entry['bound_ms']:.4f} ms by "

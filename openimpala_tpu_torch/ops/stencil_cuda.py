@@ -11,7 +11,12 @@ sweep and restrict; float32 and float64.
 K2 (``csrc/k2_conductance.cu``) replaces
 ``openimpala_tpu/ops/stencil_pallas.py::fused_conductance_pallas`` (body
 ``_cond_kernel``): the face-conductance operator of the Galerkin coarse
-levels, in modes matvec and sweep; float32 and float64.
+levels, in modes matvec and sweep; float32 and float64.  Its cheby and
+cheby_init modes (``k2_cheby``, ``k2_cheby_init``) replace no Pallas
+kernel: each is one step of the Chebyshev iteration on D^-1 A
+(``GalerkinMGPreconditioner._smooth_cheby``'s loop body, the operator and
+the vector updates) in one launch, equal to that body's separate
+roundings.
 
 K4 (``csrc/k4_matvec.cu``) replaces
 ``openimpala_tpu/ops/stencil_pallas.py::stencil_matvec_pallas`` (body
@@ -35,6 +40,9 @@ cell, each input read once and each output written once:
     K1 restrict (x, r, code, out/8)     10.5 B f32
     K2 matvec (x, cx, cy, cz, diag, out) 24 B f32
     K2 sweep (adds r)                   28 B f32
+    K2 cheby (d, cx, cy, cz, diag, res, x; res, d_new, x)
+                                        40 B f32   80 B f64
+    K2 cheby_init (r, diag; res, d, x)  20 B f32   40 B f64
     K4 / K5 (x, diag, free, out)        13 B f32   25 B f64
     K4 with a scalar or per-lane diag    9 B f32   17 B f64
 
@@ -66,7 +74,8 @@ carries a hash of the sources and flags, with the compiler's output
 are loaded with ctypes.  Nothing is compiled or loaded at import time.
 
 Counters: every launch adds one to ``launches[name]``
-(``k1_<mode>[_dot]_<f32|f64>``, ``k2_<mode>_<f32|f64>``,
+(``k1_<mode>[_dot]_<f32|f64>``, ``k2_<mode>_<f32|f64>`` (``k2_cheby``,
+``k2_cheby_init`` among the modes),
 ``k3_<mode>_<f32|f64>``, ``k3_apply_prefix_<f32|f64>``,
 ``k4_matvec[_dot]_<f32|f64>``, ``k5_matvec_<f32|f64>``), and every call of
 a plain form with a CUDA tensor adds one to ``plain_on_cuda[name]``.
@@ -278,6 +287,9 @@ def _load(name: str):
         elif name == "k2":
             for fn in (lib.k2_launch_f32, lib.k2_launch_f64):
                 fn.argtypes = [i, p, p, p, p, p, p, p, ll, ll, ll, d, p]
+                fn.restype = i
+            for fn in (lib.k2_cheby_f32, lib.k2_cheby_f64):
+                fn.argtypes = [i, p, p, p, p, p, p, p, p, ll, ll, ll, d, d, p]
                 fn.restype = i
         elif name == "k3":
             lib.k3_launch.argtypes = [i, i, i, p, p, p, p, ll, ll, ll, i, i,
@@ -583,6 +595,49 @@ def k2_conductance(mode: str, x, r, cx, cy, cz, diag, omega: float = 0.9):
     _raise_on(err, lib, "k2", f"K2 {mode}")
     _count(f"k2_{mode}_{_DTYPES[x.dtype]}", (X, Y, Z))
     return out
+
+
+def _k2_cheby_launch(init: bool, d, res, x, cx, cy, cz, diag, out, c1, c2):
+    for t, what in ((res, "res"), (x, "x"), (cx, "cx"), (cy, "cy"),
+                    (cz, "cz"), (diag, "diag"), (out, "out")):
+        _check(t, what, like=d, dtype=d.dtype)
+    # res and x are updated in place and out is written while the
+    # neighbours of d are read: no two of them may share memory
+    ptrs = [t.data_ptr() for t in (d, res, x, out)]
+    if len(set(ptrs)) != len(ptrs):
+        raise ValueError("K2 cheby: d, res, x and out must be distinct")
+    X, Y, Z = d.shape
+    lib = _load("k2")
+    fn = lib.k2_cheby_f32 if d.dtype == torch.float32 else lib.k2_cheby_f64
+    err = fn(int(init), d.data_ptr(), res.data_ptr(), x.data_ptr(),
+             cx.data_ptr(), cy.data_ptr(), cz.data_ptr(), diag.data_ptr(),
+             out.data_ptr(), X, Y, Z, float(c1), float(c2),
+             torch.cuda.current_stream(d.device).cuda_stream)
+    mode = "cheby_init" if init else "cheby"
+    _raise_on(err, lib, "k2", f"K2 {mode}")
+    _count(f"k2_{mode}_{_DTYPES[d.dtype]}", (X, Y, Z))
+
+
+def k2_cheby(d, res, x, cx, cy, cz, diag, c1: float, c2: float, out=None):
+    """One Chebyshev step on the current stream (K2's cheby mode): ``res
+    -= free ? A d : 0``, ``out = c1*d + c2*(inv_d*res)``, ``x += out``,
+    with ``inv_d = diag > 0 ? 1/diag : 0``.  ``res`` and ``x`` are updated
+    in place; ``out`` (new when None) must not be ``d``.  ``c1``, ``c2``:
+    values of the working dtype.  Returns ``out``."""
+    _check_x(d, "K2")
+    out = torch.empty_like(d) if out is None else out
+    _k2_cheby_launch(False, d, res, x, cx, cy, cz, diag, out, c1, c2)
+    return out
+
+
+def k2_cheby_init(r, diag, c0: float):
+    """The zero-start Chebyshev step on the current stream (K2's
+    cheby_init mode): ``(res, d, x) = (r, (inv_d*r)*c0, 0 + d)`` in new
+    tensors.  It reads no conductance (``r`` fills their unused slots)."""
+    _check_x(r, "K2")
+    res, d, x = (torch.empty_like(r) for _ in range(3))
+    _k2_cheby_launch(True, r, res, x, r, r, r, diag, d, c0, 0.0)
+    return res, d, x
 
 
 def _check_free(free, x, kernel: str):

@@ -208,8 +208,9 @@ class ConductanceLevel:
 
     ``cx[i,j,k]`` is the conductance between cells i and i+1 (mod X) along
     axis 0 (likewise cy/cz); on clamped axes the wrap entry [-1] is zero.
-    ``apply``/``sweep`` launch kernel K2 for a CUDA tensor and run the roll
-    form (``apply_plain``/``sweep_plain``) only for a CPU tensor.
+    ``apply``/``sweep``/``cheby_init``/``cheby_step`` launch kernel K2 for
+    a CUDA tensor and run the roll form (``apply_plain``/``sweep_plain``/
+    ``cheby_init_plain``/``cheby_step_plain``) only for a CPU tensor.
     """
 
     diag: torch.Tensor
@@ -241,11 +242,46 @@ class ConductanceLevel:
         )
         return x + inv_d * (r - self.apply_plain(x))
 
+    def _inv_d_plain(self, dtype):
+        diag = self.diag.to(dtype)
+        return torch.where(self.free & (diag > 0),
+                           1.0 / torch.where(diag > 0, diag, 1.0),
+                           _zero(diag))
+
+    def cheby_init_plain(self, r, c0: float):
+        stencil_cuda.note_plain("k2_cheby_init", r)
+        d = self._inv_d_plain(r.dtype) * r * c0
+        return r.clone(), d, _zero(r) + d
+
+    def cheby_step_plain(self, res, d, x, c1: float, c2: float):
+        stencil_cuda.note_plain("k2_cheby", res)
+        res = res - self.apply_plain(d)
+        d = c1 * d + c2 * (self._inv_d_plain(res.dtype) * res)
+        return res, d, x + d
+
     def apply(self, x):
         if _on_cpu(x):
             return self.apply_plain(x)
         return stencil_cuda.k2_conductance("matvec", x, None, self.cx,
                                            self.cy, self.cz, self.diag)
+
+    def cheby_init(self, r, c0: float):
+        """The Chebyshev iteration's first step from x = 0: ``(res, d, x)
+        = (r, inv_d*r*c0, d)``, ``inv_d = diag > 0 ? 1/diag : 0``."""
+        if _on_cpu(r):
+            return self.cheby_init_plain(r, c0)
+        return stencil_cuda.k2_cheby_init(r, self.diag, c0)
+
+    def cheby_step(self, res, d, x, c1: float, c2: float, out=None):
+        """One later step: ``res - A d``, ``d' = c1*d + c2*inv_d*res'``,
+        ``x + d'``, returned as ``(res', d', x')``.  On the card one K2
+        launch that updates ``res`` and ``x`` in place and writes ``d'``
+        into ``out`` (a spare buffer like ``d``; new when None)."""
+        if _on_cpu(res):
+            return self.cheby_step_plain(res, d, x, c1, c2)
+        d_new = stencil_cuda.k2_cheby(d, res, x, self.cx, self.cy, self.cz,
+                                      self.diag, c1, c2, out=out)
+        return res, d_new, x
 
     def sweep(self, x, r, omega: float):
         if _on_cpu(x):
@@ -520,47 +556,66 @@ class GalerkinMGPreconditioner:
                           max(30, round(1.6 * kw["coarse_ratio"] ** 0.5)))
 
     # -- smoothing ---------------------------------------------------------
-    def _smooth(self, apply_fn, diag, free, x, r, n: int):
+    def _smooth(self, lvl, diag, free, r, n: int):
+        """``n`` smoothing steps on level ``lvl`` from zero."""
         if self.smoother == "cheby":
-            return self._smooth_cheby(apply_fn, diag, free, x, r, n)
+            return self._smooth_cheby(lvl, diag, free, None, r, n)
         inv_d = torch.where(
             free, _full(self.omega, r.dtype, r.device)
             / torch.where(diag > 0, diag, 1.0),
             _zero(r),
         )
+        x = torch.zeros_like(r)
         for _ in range(n):
-            x = x + inv_d * (r - apply_fn(x))
+            x = x + inv_d * (r - lvl.apply(x))
         return x
 
-    def _smooth_cheby(self, apply_fn, diag, free, x, r, degree: int,
+    def _smooth_cheby(self, lvl, diag, free, x, r, degree: int,
                       ratio: float = 6.0):
         """Degree-``degree`` Chebyshev iteration on [hi/ratio, hi] of
-        D^{-1}A.  The scalar recurrence (rho) runs on the host in the
-        working dtype (the values the JAX loop carries on the device),
-        so no device value is ever read back."""
+        D^{-1}A on level ``lvl`` from ``x`` (None: from zero).  The scalar
+        recurrence (rho) runs on the host in the working dtype (the values
+        the JAX loop carries on the device), so no device value is ever
+        read back.  On a ConductanceLevel each step is one
+        ``lvl.cheby_step`` (one K2 launch on the card, which updates the
+        loop's own ``res`` and ``x`` in place), and the step from zero one
+        ``lvl.cheby_init``; other levels apply the operator and update
+        with tensor code."""
         hi = 2.2
         lo = hi / ratio
         theta = 0.5 * (hi + lo)
         delta = 0.5 * (hi - lo)
         sigma = theta / delta
         ft = _NP_FLOAT[r.dtype]
-        inv_d = torch.where(
-            free & (diag > 0),
-            1.0 / torch.where(diag > 0, diag, 1.0),
-            _zero(r),
-        )
-        res = r - apply_fn(x)
-        d = inv_d * res * float(ft(1.0 / theta))
-        x = x + d
+        c0 = float(ft(1.0 / theta))
+        fused = isinstance(lvl, ConductanceLevel)
+        if fused and x is None:
+            res, d, x = lvl.cheby_init(r, c0)
+        else:
+            inv_d = torch.where(
+                free & (diag > 0),
+                1.0 / torch.where(diag > 0, diag, 1.0),
+                _zero(r),
+            )
+            x = torch.zeros_like(r) if x is None else x
+            res = r - lvl.apply(x)
+            d = inv_d * res * c0
+            x = x + d
         two_sigma = ft(2.0 * sigma)
         two_over_delta = ft(2.0 / delta)
         rho = ft(1.0 / sigma)
+        spare = None  # the card's step writes d' beside d, then they swap
         for _ in range(1, degree):
-            res = res - apply_fn(d)
             rho_new = ft(1.0) / (two_sigma - rho)
-            d = (float(rho_new * rho) * d
-                 + float(rho_new * two_over_delta) * (inv_d * res))
-            x = x + d
+            c1 = float(rho_new * rho)
+            c2 = float(rho_new * two_over_delta)
+            if fused:
+                res, d_new, x = lvl.cheby_step(res, d, x, c1, c2, out=spare)
+                spare, d = d, d_new
+            else:
+                res = res - lvl.apply(d)
+                d = c1 * d + c2 * (inv_d * res)
+                x = x + d
             rho = rho_new
         return x
 
@@ -572,8 +627,7 @@ class GalerkinMGPreconditioner:
         fine = self.fine
         if self.smoother == "cheby":
             diag, free = fine.decode(r.dtype)
-            x0 = torch.zeros_like(r) if x is None else x
-            return self._smooth_cheby(fine.apply, diag, free, x0, r, n)
+            return self._smooth_cheby(fine, diag, free, x, r, n)
         if x is None:
             diag, free = fine.decode(r.dtype)
             inv_d = torch.where(
@@ -594,12 +648,10 @@ class GalerkinMGPreconditioner:
             if not self.levels:  # volume too small to coarsen at all
                 diag, free = self.fine.decode(r.dtype)
                 if self.coarse_solver == "cheby":
-                    return self._smooth_cheby(self.fine.apply, diag, free,
-                                              torch.zeros_like(r), r,
+                    return self._smooth_cheby(self.fine, diag, free, None, r,
                                               self.coarse_sweeps,
                                               ratio=self.coarse_ratio)
-                return self._smooth(self.fine.apply, diag, free,
-                                    torch.zeros_like(r), r,
+                return self._smooth(self.fine, diag, free, r,
                                     self.coarse_sweeps)
             x = self._fine_smooth(None, r, self.nu1)
             if self.transfer == "tri":
@@ -621,13 +673,11 @@ class GalerkinMGPreconditioner:
         diag, free = lvl.diag.to(r.dtype), lvl.free
 
         if idx == len(self.levels):  # coarsest
-            x = torch.zeros_like(r)
             if self.coarse_solver == "cheby":
-                return self._smooth_cheby(lvl.apply, diag, free, x, r,
+                return self._smooth_cheby(lvl, diag, free, None, r,
                                           self.coarse_sweeps,
                                           ratio=self.coarse_ratio)
-            return self._smooth(lvl.apply, diag, free, x, r,
-                                self.coarse_sweeps)
+            return self._smooth(lvl, diag, free, r, self.coarse_sweeps)
 
         x = self._cond_smooth(lvl, diag, free, None, r, self.nu1)
         # the W-cycle corrects twice on the levels down to w_depth
@@ -655,10 +705,10 @@ class GalerkinMGPreconditioner:
     def _cond_smooth(self, lvl, diag, free, x, r, n: int):
         """Coarse-level damped-Jacobi sweeps (K2 sweep on the card);
         ``x=None`` starts from zero with the elementwise first sweep.  The
-        Chebyshev smoother applies the level's operator (K2 matvec)."""
+        Chebyshev smoother runs K2's cheby steps (K2 matvec for the first
+        residual of a nonzero ``x``)."""
         if self.smoother == "cheby":
-            x0 = torch.zeros_like(r) if x is None else x
-            return self._smooth_cheby(lvl.apply, diag, free, x0, r, n)
+            return self._smooth_cheby(lvl, diag, free, x, r, n)
         if x is None:
             inv_d = torch.where(
                 free,

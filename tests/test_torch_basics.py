@@ -219,6 +219,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         stencil.apply_code(meta, code.to("meta"), (1.0,) * 3, (False,) * 3)
 
 
+def test_k2_cheby_wrappers_refuse_cpu_tensors():
+    """The Chebyshev step's kernel takes CUDA tensors only; a CPU level
+    runs its plain step (``ConductanceLevel.cheby_step_plain``)."""
+    x = torch.zeros((4, 4, 4), dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        stencil_cuda.k2_cheby(x, x.clone(), x.clone(), x, x, x, x, 1.0, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        stencil_cuda.k2_cheby_init(x, x, 1.0)
+
+
 def test_plain_forms_count_only_cuda_tensors():
     stencil_cuda.reset_counts()
     x = torch.zeros((4, 4, 4), dtype=torch.float64)

@@ -94,6 +94,15 @@ def test_k1_k2_match_plain(cuda, kind, shape, dx, dtype):
                                    **TOL[dtype])
         torch.testing.assert_close(lvl.sweep(xl, rl, 0.9),
                                    lvl.sweep_plain(xl, rl, 0.9), **TOL[dtype])
+        for got, want in zip(lvl.cheby_init(rl, 0.7),
+                             lvl.cheby_init_plain(rl, 0.7)):
+            torch.testing.assert_close(got, want, **TOL[dtype])
+        state = (rl, xl, torch.randn(lvl.diag.shape, generator=g,
+                                     dtype=dtype, device=cuda))
+        got = lvl.cheby_step(*(t.clone() for t in state), 0.5, 0.25)
+        for got_t, want_t in zip(got, lvl.cheby_step_plain(*state, 0.5,
+                                                           0.25)):
+            torch.testing.assert_close(got_t, want_t, **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -588,6 +597,10 @@ def test_galerkin_options_gpu_match_cpu(cuda, kind, opts):
     torch.testing.assert_close(gpu(r.to(cuda)).cpu(), cpu(r), rtol=1e-10,
                                atol=1e-10)
     assert not sc.plain_on_cuda and sc.launches["k2_matvec_f64"] > 0
+    # the coarsest solve, and the Chebyshev smoother on level 1, run K2's
+    # fused steps
+    assert sc.launches["k2_cheby_init_f64"] > 0
+    assert sc.launches["k2_cheby_f64"] > 0
     if opts.get("smoother") == "cheby":
         assert not any("sweep" in k for k in sc.launches)
         assert sc.launches["k1_matvec_f64"] > 0
@@ -1069,3 +1082,154 @@ def test_k1_stream_periodic_repeats_under_allocation_churn(cuda, mode):
         stop.set()
         thread.join()
     assert bad == 0
+
+
+# ---------------------------------------------------------------------------
+# The coarsest level's Chebyshev solve: one K2 cheby launch per step
+# ---------------------------------------------------------------------------
+
+
+def _cheby_unfused(lvl, x, r, degree, ratio):
+    """The Chebyshev iteration as K2 matvec and PyTorch's elementwise
+    kernels: the sequence that K2's cheby modes fuse."""
+    hi = 2.2
+    lo = hi / ratio
+    theta, delta = 0.5 * (hi + lo), 0.5 * (hi - lo)
+    sigma = theta / delta
+    ft = {torch.float32: np.float32, torch.float64: np.float64}[r.dtype]
+    diag, free = lvl.diag.to(r.dtype), lvl.free
+    inv_d = torch.where(free & (diag > 0),
+                        1.0 / torch.where(diag > 0, diag, 1.0),
+                        torch.zeros((), dtype=r.dtype, device=r.device))
+    x = torch.zeros_like(r) if x is None else x
+    res = r - lvl.apply(x)
+    d = inv_d * res * float(ft(1.0 / theta))
+    x = x + d
+    two_sigma, two_over_delta = ft(2.0 * sigma), ft(2.0 / delta)
+    rho = ft(1.0 / sigma)
+    for _ in range(1, degree):
+        res = res - lvl.apply(d)
+        rho_new = ft(1.0) / (two_sigma - rho)
+        d = (float(rho_new * rho) * d
+             + float(rho_new * two_over_delta) * (inv_d * res))
+        x = x + d
+        rho = rho_new
+    return x
+
+
+def _cheby_level(cuda, which, kind, dtype):
+    """A conductance level and the cycle that owns it: the fine
+    conductances of a 128^3 or an odd 33x21x17 system (blocked cells among
+    them), or the coarsest Galerkin level of the 128^3 system (32^3)."""
+    shape = (33, 21, 17) if which == "odd" else (128, 128, 128)
+    s = _system(kind, shape, (1.0, 1.0, 1.0), dtype, cuda)
+    M = GalerkinMGPreconditioner.from_system(s)
+    if which == "32":
+        return M, M.levels[-1]
+    lvl = fine_conductances(s)
+    assert bool((lvl.diag == 0).any())
+    return M, lvl
+
+
+@pytest.mark.parametrize("graphed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["flow", "cell"])
+@pytest.mark.parametrize("which", ["128", "32", "odd"])
+def test_fused_coarse_solve_equals_unfused(cuda, which, kind, dtype,
+                                           graphed):
+    """The Chebyshev iteration on a conductance level, one K2 cheby launch
+    a step, equals K2 matvec and the elementwise kernels to the bit
+    (clamped and periodic, float32 and float64), from zero and from a
+    nonzero start, eagerly and replayed from a CUDA graph."""
+    M, lvl = _cheby_level(cuda, which, kind, dtype)
+    shape = tuple(lvl.diag.shape)
+    kw = {}
+    GalerkinMGPreconditioner._coarse_defaults(kw, shape)
+    degree, ratio = kw["coarse_sweeps"], kw["coarse_ratio"]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    r = torch.where(lvl.free, torch.randn(shape, generator=g, dtype=dtype,
+                                          device=cuda), 0.0)
+    x0 = torch.randn(shape, generator=g, dtype=dtype, device=cuda)
+    diag = lvl.diag.to(dtype)
+
+    def fused():
+        return (M._smooth_cheby(lvl, diag, lvl.free, None, r, degree, ratio),
+                M._smooth_cheby(lvl, diag, lvl.free, x0, r, degree, ratio))
+
+    sc.reset_counts()
+    if graphed:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fused()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fused()
+        r.copy_(torch.where(lvl.free, torch.randn(
+            shape, generator=g, dtype=dtype, device=cuda), 0.0))
+        graph.replay()
+        torch.cuda.synchronize()
+    else:
+        out = fused()
+    tag = "f32" if dtype == torch.float32 else "f64"
+    assert sc.launches[f"k2_cheby_{tag}"] == 2 * (degree - 1) * (
+        2 if graphed else 1)
+    assert sc.launches[f"k2_cheby_init_{tag}"] == (2 if graphed else 1)
+    want0 = _cheby_unfused(lvl, None, r, degree, ratio)
+    want1 = _cheby_unfused(lvl, x0, r, degree, ratio)
+    assert torch.equal(out[0], want0)
+    assert torch.equal(out[1], want1)
+    assert not sc.plain_on_cuda
+    if graphed:
+        del graph
+
+
+def test_vcycle_at_512_runs_the_coarse_solve_fused(cuda):
+    """One V-cycle of the default cycle at 512^3 (coarsest 128^3, 102
+    Chebyshev steps): the zero-start step and 101 K2 cheby launches at the
+    coarsest extent, no K2 matvec there."""
+    s = _system("flow", (512, 512, 512), (1.0, 1.0, 1.0), torch.float32,
+                cuda)
+    M = GalerkinMGPreconditioner.from_system(s)
+    coarsest = (128, 128, 128)
+    assert tuple(M.levels[-1].diag.shape) == coarsest
+    assert M.coarse_sweeps == 102
+    g = torch.Generator(device=cuda).manual_seed(4)
+    r = torch.where(s.free, torch.randn(s.free.shape, generator=g,
+                                        device=cuda), 0.0)
+    sc.reset_counts()
+    z = M(r)
+    torch.cuda.synchronize()
+    at = sc.launches_at
+    assert at["k2_cheby_f32", coarsest] == 101
+    assert at["k2_cheby_init_f32", coarsest] == 1
+    assert at.get(("k2_matvec_f32", coarsest), 0) == 0
+    assert sum(v for (k, _), v in at.items() if k == "k2_cheby_f32") == 101
+    assert not sc.plain_on_cuda and bool(torch.isfinite(z).all())
+
+
+@pytest.mark.parametrize("opts", [{}, {"smoother": "cheby"}])
+def test_slab_gathered_coarse_solve_on_card(cuda, opts):
+    """The slab cycle on two ranks of one card (gloo), gathered at the
+    coarsest level, where every rank runs the fused Chebyshev solve on
+    the global level: equal to the single-card cycle to 1e-10 in float64,
+    with the default and the Chebyshev smoother."""
+    from openimpala_tpu_torch.parallel import spawn
+
+    shape = (32, 16, 16)
+    rng = np.random.default_rng(9)
+    active = rng.random(shape) < 0.7
+    sys1 = st.make_tortuosity_system(torch.from_numpy(active).to(cuda), 0,
+                                     -1.0, 1.0, dtype=torch.float64)
+    r = np.where(active, rng.standard_normal(shape), 0.0)
+    M = GalerkinMGPreconditioner.from_system(sys1, **opts)
+    sc.reset_counts()
+    z1 = M(torch.from_numpy(r).to(cuda)).cpu().numpy()
+    assert sc.launches["k2_cheby_f64"] > 0
+    got = spawn.run("openimpala_tpu_torch.parallel.checks:vcycle", 2,
+                    args=(active, r, 0, (1.0, 1.0, 1.0), opts),
+                    device="cuda:0", timeout=300)
+    assert [gl for _, gl in got] == [len(M.levels)] * 2
+    z = np.concatenate([zs for zs, _ in got])
+    np.testing.assert_allclose(z, z1, rtol=0, atol=1e-10)

@@ -110,6 +110,10 @@ def test_pair_helpers_match_jax():
     ("flow", (16, 16, 16), (1.0, 1.0, 1.0), {"coarse_solver": "jacobi",
                                              "coarse_sweeps": 20}),
     ("flow", (6, 6, 6), (1.0, 1.0, 1.0), {}),
+    ("flow", (16, 16, 16), (1.0, 1.0, 1.0), {"smoother": "cheby",
+                                             "coarse_solver": "jacobi",
+                                             "coarse_sweeps": 20}),
+    ("cell", (16, 12, 16), (1.0, 1.0, 1.0), {"smoother": "cheby"}),
 ])
 def test_vcycle_matches_jax(kind, shape, dx, opts):
     js, ps = _systems(kind, shape, dx, seed=4)
@@ -155,3 +159,81 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         make_precond(ps, "bogus")
     assert isinstance(make_precond(ps, "auto"), PP.GalerkinMGPreconditioner)
+
+
+def _cheby_loop(apply_fn, diag, free, x, r, degree, ratio):
+    """The Chebyshev iteration as ``_smooth_cheby`` ran it before its
+    steps were fused into the level's: the operator, then tensor code.
+    Returns the first step's (res, d, x, c0), then each later step's
+    (res, d, x, c1, c2)."""
+    hi = 2.2
+    lo = hi / ratio
+    theta, delta = 0.5 * (hi + lo), 0.5 * (hi - lo)
+    sigma = theta / delta
+    ft = {torch.float32: np.float32, torch.float64: np.float64}[r.dtype]
+    inv_d = torch.where(free & (diag > 0),
+                        1.0 / torch.where(diag > 0, diag, 1.0),
+                        torch.zeros((), dtype=r.dtype))
+    c0 = float(ft(1.0 / theta))
+    res = r - apply_fn(x)
+    d = inv_d * res * c0
+    x = x + d
+    states = [(res, d, x, c0)]
+    two_sigma, two_over_delta = ft(2.0 * sigma), ft(2.0 / delta)
+    rho = ft(1.0 / sigma)
+    for _ in range(1, degree):
+        res = res - apply_fn(d)
+        rho_new = ft(1.0) / (two_sigma - rho)
+        c1 = float(rho_new * rho)
+        c2 = float(rho_new * two_over_delta)
+        d = c1 * d + c2 * (inv_d * res)
+        x = x + d
+        rho = rho_new
+        states.append((res, d, x, c1, c2))
+    return states
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["flow", "cell"])
+@pytest.mark.parametrize("level,shape,porosity", [
+    ("fine", (9, 7, 5), 0.7),      # odd extents, blocked fine cells
+    ("fine", (16, 12, 8), 0.7),
+    ("coarse", (16, 12, 8), 0.2),  # Galerkin level with blocked coarse cells
+])
+def test_cheby_plain_steps_equal_the_loop_body(kind, level, shape, porosity,
+                                               dtype):
+    """``ConductanceLevel.cheby_init_plain`` and ``cheby_step_plain``, and
+    the Chebyshev iteration built from them, are the loop they replace to
+    the bit, clamped (flow) and periodic (cell), float32 and float64."""
+    mask = torch.from_numpy(
+        np.random.default_rng(7).random(shape) < porosity)
+    if kind == "flow":
+        ps = PS.make_tortuosity_system(mask, 0, -1.0, 1.0, dtype=dtype)
+    else:
+        ps = PS.make_cell_problem_system(mask, 1, dtype=dtype)
+    lvl = PP.fine_conductances(ps)
+    if level == "coarse":
+        lvl = PP.galerkin_coarsen(lvl)
+    assert bool((lvl.diag == 0).any()) and bool((lvl.diag > 0).any())
+    lshape = tuple(lvl.diag.shape)
+    rng = np.random.default_rng(8)
+    r = torch.from_numpy(rng.standard_normal(lshape)).to(dtype)
+    x0 = torch.from_numpy(rng.standard_normal(lshape)).to(dtype)
+    diag, free = lvl.diag.to(dtype), lvl.free
+    degree, ratio = 9, 64.0
+    want = _cheby_loop(lvl.apply, diag, free, torch.zeros_like(r), r,
+                       degree, ratio)
+    *first, c0 = want[0]
+    for g, w in zip(lvl.cheby_init_plain(r, c0), first):
+        assert torch.equal(g, w)
+    for before, after in zip(want, want[1:]):
+        *state, c1, c2 = after
+        for g, w in zip(lvl.cheby_step_plain(*before[:3], c1, c2), state):
+            assert torch.equal(g, w)
+    # the whole iteration through the cycle's own loop, from zero and x0
+    pm = PP.GalerkinMGPreconditioner.from_system(ps)
+    assert torch.equal(pm._smooth_cheby(lvl, diag, free, None, r, degree,
+                                        ratio), want[-1][2])
+    want0 = _cheby_loop(lvl.apply, diag, free, x0, r, degree, ratio)
+    assert torch.equal(pm._smooth_cheby(lvl, diag, free, x0, r, degree,
+                                        ratio), want0[-1][2])
