@@ -26,14 +26,16 @@ import json  # noqa: E402
 
 import numpy as np  # noqa: E402
 
-from portbench import blobs, spec  # noqa: E402
+from portbench import blobs, ranks, spec  # noqa: E402
 from portbench import traffic as traffic_mod  # noqa: E402
 
 
 def readings(cell, seed, device, dtype="float32"):
-    """The comparison's readings of the control for one seed."""
+    """The comparison's readings of the control for one seed (a cell on
+    several cards: the reference on X slabs over as many devices)."""
     import torch
 
+    ref_device = ranks.devices(device, cell.chips)
     tr = traffic_mod.make(cell.traffic, seed)
     kind = importlib.import_module(f"portbench.kinds.{tr.kind}")
     k = len(tr.porosities) * max(1, len(tr.directions))
@@ -41,10 +43,10 @@ def readings(cell, seed, device, dtype="float32"):
                for p, s in zip(tr.porosities, tr.volume_seeds)]
     # worked out only where the comparison reads them
     answered = [(r, kind.control_answer(volumes[r.volume], r, cell.config,
-                                        device, getattr(torch, dtype)))
+                                        ref_device, getattr(torch, dtype)))
                 for r in (tr.request(i, seed) for i in range(k))]
     rng = np.random.default_rng(blobs.seed_of(seed, traffic_mod.CHECK))
-    got = kind.compare(answered, volumes, cell.config, tr, rng, device,
+    got = kind.compare(answered, volumes, cell.config, tr, rng, ref_device,
                        torch.float64)
     limits = tr.check["limits"]
     return {"seed": seed, "readings": got,

@@ -6,7 +6,9 @@ only once the last answer is in host memory.  Requests go out until
 ``--seconds`` have passed; the window closes when the last answer
 arrives.  Nothing is built or captured for the first time inside it: the
 set-up made one request of the cell's shape along every direction the
-stream uses.
+stream uses.  A cell of several cards runs one rank per card
+(``ranks.py``), each on its own X slab of every volume; this process is
+rank 0 and keeps the clock.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import time
 
 import numpy as np
 
-from . import blobs, devtrace, spec
+from . import blobs, devtrace, ranks, spec
 from . import traffic as traffic_mod
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "openimpala_tpu")
@@ -86,10 +88,36 @@ def _sync(torch, device):
 def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
              device, t0: float, port=None, root: str = spec.ROOT) -> dict:
     """The result of one run (the dict printed as the last line);
-    ``port``: the package under test, ``root``: the checkout whose
-    readers it reads."""
+    ``port``: the package under test (for a cell on several cards, its
+    ``ranks.resolve_port`` name, which every rank builds), ``root``: the
+    checkout whose readers it reads.  A cell on several cards runs on as
+    many ranks (``ranks.py``)."""
+    if cell.chips == 1:
+        return _run(cell, seed, seconds, trace, device, t0, port, root,
+                    None)
     import torch
 
+    world = ranks.World(cell.chips, device)
+    threads = torch.get_num_threads()
+    if not world.cuda:  # ranks that share the host's cores: one each
+        torch.set_num_threads(1)
+    try:
+        return _run(cell, seed, seconds, trace, device, t0, port, root,
+                    world)
+    except BaseException as exc:
+        world.abandon()
+        world.check(exc)
+        raise
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _run(cell, seed, seconds, trace, device, t0, port, root, world):
+    import torch
+
+    spec_name = port if isinstance(port, str) else ranks.PORT
+    if isinstance(port, str):
+        port = ranks.resolve_port(port)
     if port is None:
         import openimpala_tpu_torch as port
     from openimpala_tpu_torch.ops import stencil_cuda
@@ -104,9 +132,34 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     volumes = [blobs.blobs(traffic.n, p, s, device).cpu().numpy()
                for p, s in zip(traffic.porosities, traffic.volume_seeds)]
     s1 = time.perf_counter()
+    if world is None:
+        feed, extra = volumes, {}
+    else:
+        # every rank its own X slab, as io.ingest.threshold_sharded hands
+        # it (the edge divides into the ranks: no padding)
+        world.join({"cell": dataclasses.asdict(cell), "seed": seed,
+                    "port": spec_name, "device": "cuda" if cuda else "cpu"})
+        feed = world.scatter(volumes)
+        extra = {"original_shape": (traffic.n,) * 3}
+        print(f"portbench: {world.n} ranks ({world.backend}) joined and "
+              f"given their slabs {time.perf_counter() - s1:.3f} s after "
+              f"the volumes", file=sys.stderr, flush=True)
+
+    def call(req, **kw):
+        if world is not None:
+            world.tell(ranks.CALL, req.index)
+        ans = kind.call(port, feed[req.volume], req, config, device,
+                        **extra, **kw)
+        if world is not None:
+            world.done()
+        return ans
+
     for req in traffic.warmup(seed):
-        kind.call(port, volumes[req.volume], req, config, device)
+        call(req)
     _sync(torch, device)
+    if world is not None:
+        world.tell(ranks.WARMED)
+        world.done()
     print(f"portbench: set-up: imports and device {s0 - t0:.3f} s, volumes "
           f"{s1 - s0:.3f} s, warm-up {time.perf_counter() - s1:.3f} s",
           file=sys.stderr, flush=True)
@@ -121,7 +174,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         req = traffic.request(i, seed)
         i += 1
         a0 = time.perf_counter()
-        ans = kind.call(port, volumes[req.volume], req, config, device)
+        ans = call(req)
         a1 = time.perf_counter()
         answered.append((req, ans))
         latencies.append(a1 - a0)
@@ -142,9 +195,15 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
           f"{np.median(latencies[:third]):.4f}, "
           f"{np.median(latencies[-third:]):.4f}{alloc}", file=sys.stderr,
           flush=True)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    if world is not None:  # the fullest card
+        peaks = [r["peak_bytes"] for r in world.gather(ranks.CLOSED)]
+        print(f"portbench: peak GB by rank "
+              f"{[round(b / 1e9, 3) for b in [peak] + peaks]}",
+              file=sys.stderr, flush=True)
+        peak = max([peak] + peaks)
     window = Window(traffic.kind, a1 - start, latencies,
-                    sum(kind.results(a) for _, a in answered),
-                    torch.cuda.max_memory_allocated() if cuda else 0,
+                    sum(kind.results(a) for _, a in answered), peak,
                     setup_s)
     attempted = sum(kind.expected(r, traffic) for r, _ in answered)
     failed = sum(kind.failed(r, a, traffic) for r, a in answered)
@@ -158,18 +217,34 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         from torch.profiler import record_function
 
         rows = []
+        if world is not None:
+            from openimpala_tpu_torch.parallel import mesh as port_mesh
+            # every rank's profiler records before the first request
+            world.gather(ranks.TRACE_ON)
         with devtrace.traced() as reduced:
             for j in range(int(traffic.trace["answers"])):
                 req = traffic.request(i + j, seed)
                 graphs.reset_stats()
                 stencil_cuda.reset_counts()
+                if world is not None:
+                    port_mesh.reset_stats()
                 timings = {}
                 with record_function(devtrace.ANSWER):
-                    kind.call(port, volumes[req.volume], req, config, device,
-                              timings=timings)
+                    call(req, timings=timings)
                     _sync(torch, device)
                 rows.append({"timings": timings, "graphs": dict(graphs.stats),
                              "launches": dict(stencil_cuda.launches_route_at)})
+                if world is not None:
+                    rows[-1]["mesh"] = dict(port_mesh.stats)
+        if world is not None:
+            # each rank traced its own card: the busy seconds are their
+            # mean, the window rank 0's
+            busy = [r.get("busy_s") for r in world.gather(ranks.TRACE_OFF)]
+            if reduced:
+                busy = [reduced["busy_s"]] + busy
+                print(f"portbench: traced busy s by rank {busy}",
+                      file=sys.stderr, flush=True)
+                reduced["busy_s"] = sum(busy) / len(busy)
         print(f"portbench: traced {len(rows)} requests, "
               f"{time.perf_counter() - a1:.3f} s after the window",
               file=sys.stderr, flush=True)
@@ -181,14 +256,24 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
             breakdown = {"device_ops": reduced["device_ops"],
                          "idle_gaps": reduced["idle_gaps"]}
 
+    if world is not None:
+        # the other ranks end before the reference takes their cards
+        reports = world.close()
+        for r, rep in enumerate(reports, 1):
+            if rep["log"].strip():
+                print(f"portbench: rank {r} printed:\n{rep['log'].strip()}",
+                      file=sys.stderr, flush=True)
+        found = sorted({m for rep in reports for m in rep["forbidden"]})
+        if found:
+            raise RuntimeError(f"a rank loaded {', '.join(found)}")
     # the program's state is gone (answers are host values); the reference
     # runs on the device in f64, after the peak was read
     if cuda:
         torch.cuda.empty_cache()
     rng = np.random.default_rng(blobs.seed_of(seed, traffic_mod.CHECK))
     c0 = time.perf_counter()
-    readings = kind.compare(answered, volumes, config, traffic, rng, device,
-                            torch.float64)
+    readings = kind.compare(answered, volumes, config, traffic, rng,
+                            ranks.devices(device, cell.chips), torch.float64)
     print(f"portbench: reference {time.perf_counter() - c0:.3f} s",
           file=sys.stderr, flush=True)
     limits = traffic.check["limits"]

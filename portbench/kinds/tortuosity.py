@@ -14,18 +14,23 @@ import types
 
 import torch
 
-from ..reference import props
+from ..reference import props, slabs
 from . import Lazy, stratified
 
 AXES = {"X": 0, "Y": 1, "Z": 2}
 
 
-def call(port, volume, request, config, device, timings=None):
+def call(port, volume, request, config, device, timings=None,
+         original_shape=None):
+    """``original_shape``: ``volume`` is this rank's X slab of a volume of
+    that shape (every rank of the process group calls)."""
+    extra = {} if original_shape is None else {
+        "original_shape": original_shape}
     return port.tortuosity(
         volume, config["phase_id"], request.direction, vlo=config["vlo"],
         vhi=config["vhi"], eps=config["eps"], precond=config["precond"],
         percolation_method=config["percolation_method"],
-        dx=tuple(config["dx"]), device=device, timings=timings)
+        dx=tuple(config["dx"]), device=device, timings=timings, **extra)
 
 
 def results(answer) -> int:
@@ -63,15 +68,21 @@ def _tau_of(a, shape, axis, config):
 
 
 def reference(volume, direction, config, device, dtype):
-    """The reference's answer for one (volume, direction), a dict."""
+    """The reference's answer for one (volume, direction), a dict;
+    ``device`` a tuple of devices: on X slabs over them
+    (``reference/slabs.py``)."""
     t0 = time.perf_counter()
-    ok = torch.from_numpy(volume).to(device) == config["phase_id"]
     axis = AXES[direction]
-    active, n_active = props.percolation(ok, axis)
+    ref = slabs if isinstance(device, tuple) else props
+    if ref is slabs:
+        ok = [s == config["phase_id"] for s in slabs.split(volume, device)]
+    else:
+        ok = torch.from_numpy(volume).to(device) == config["phase_id"]
+    active, n_active = ref.percolation(ok, axis)
     del ok
     t1 = time.perf_counter()  # the count above waited for the device
-    out = props.tortuosity(active, n_active, axis, config["vlo"],
-                           config["vhi"], tuple(config["dx"]), dtype)
+    out = ref.tortuosity(active, n_active, axis, config["vlo"],
+                         config["vhi"], tuple(config["dx"]), dtype)
     out["n_active"] = n_active
     print(f"portbench: reference {direction} {dtype}: percolation "
           f"{t1 - t0:.3f} s, solve {time.perf_counter() - t1:.3f} s, "

@@ -3,7 +3,12 @@
 
 K2 (``csrc/k2_conductance.cu``) reads ``x``, the three face conductances
 and ``diag`` and writes ``out`` (six fields of the dtype: 24 B a cell in
-float32); ``sweep`` also reads ``r`` (28).  K4 (``csrc/k4_matvec.cu``)
+float32); ``sweep`` also reads ``r`` (28).  A ``cheby`` step of the
+coarsest level's Chebyshev solve reads ``d``, the three conductances,
+``diag``, ``res`` and ``x`` and writes ``res``, ``d_new`` and ``x`` (ten
+fields: 40 B a cell in float32, 80 in float64); ``cheby_init`` reads
+``r`` and ``diag`` and writes ``res``, ``d_new`` and ``x`` (five: 20 B,
+40).  K4 (``csrc/k4_matvec.cu``)
 reads ``x``, the full ``diag`` and the one-byte ``free`` and writes
 ``out`` (13 B a cell in float32, 25 in float64); its dot's partials are a
 few bytes a block.  An extent is ``(X, Y, Z)``, or ``(B, X, Y, Z)`` for a
@@ -16,15 +21,16 @@ import math
 
 from .roofline import ITEMSIZE
 
-K2_MODES = ("matvec", "sweep")
+# fields of the dtype one launch moves, by mode
+K2_FIELDS = {"matvec": 6, "sweep": 7, "cheby": 10, "cheby_init": 5}
+K2_MODES = tuple(K2_FIELDS)
 
 
 def k2_bytes(mode: str, shape, dtype: str) -> float:
     """Compulsory bytes of one K2 launch on ``shape``."""
-    if mode not in K2_MODES:
+    if mode not in K2_FIELDS:
         raise ValueError(f"unknown K2 mode {mode!r}")
-    fields = 7 if mode == "sweep" else 6
-    return fields * ITEMSIZE[dtype] * math.prod(shape)
+    return K2_FIELDS[mode] * ITEMSIZE[dtype] * math.prod(shape)
 
 
 def k4_bytes(shape, dtype: str) -> float:

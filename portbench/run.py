@@ -5,12 +5,14 @@ the root of a checkout:
     python3 portbench/run.py --workload <name> --seed <n> --seconds <s> \\
         --trace <0|1>
 
-One process on one CUDA device: set-up (the package's kernels loaded or
-built into its own build directory, the volumes made on the device from
-the seed, one request of the cell's shape per direction), a closed-loop
-window of ``--seconds``, with ``--trace 1`` a profiled sub-window, the
-comparison with the plain reference, and one JSON line on standard
-output.  Without a CUDA device it prints no result and exits with 3.
+One process on one CUDA device, or for a cell of several cards one rank
+per card (``portbench/ranks.py``; this process is rank 0): set-up (the
+package's kernels loaded or built into its own build directory, the
+volumes made on the device from the seed, one request of the cell's shape
+per direction), a closed-loop window of ``--seconds``, with ``--trace 1``
+a profiled sub-window, the comparison with the plain reference, and one
+JSON line on standard output.  Without as many CUDA devices as the cell
+asks for it prints no result and exits with 3.
 """
 
 import time

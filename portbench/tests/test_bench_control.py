@@ -22,6 +22,8 @@ SMALL = {
     "deff512.tensor": (40, 2, 0.4, {}),
     "rev512.batched": (64, 1, 0.4, {"call": {"sizes": [16, 24],
                                             "num_samples": 3}}),
+    # four gloo ranks on the CPU, slabs of 12 planes
+    "tau1024.slabs4": (48, 2, 0.4, {}),
 }
 SEED = 2 ** 32 + 11
 
@@ -75,6 +77,8 @@ FAULTS = [
     ("tau128.screen", "state"), ("tau128.screen", "answer"),
     ("deff512.tensor", "state"), ("deff512.tensor", "answer"),
     ("rev512.batched", "half_batch"), ("rev512.batched", "state"),
+    ("tau1024.slabs4", "state"), ("tau1024.slabs4", "answer"),
+    ("tau1024.slabs4", "exchange"),
 ]
 
 
@@ -85,7 +89,17 @@ def test_a_broken_timed_path_is_not_correct(name, fault, monkeypatch):
     from openimpala_tpu_torch.props import tortuosity as pt
     from openimpala_tpu_torch.solve import batched
 
+    from openimpala_tpu_torch.parallel import mesh
+
     cell = _cell(name)
+    if cell.chips > 1:  # planted in every rank (slab_ports.py)
+        # this process is rank 0: what the fault patches here is undone
+        monkeypatch.setattr(pt, "solve_system", pt.solve_system)
+        monkeypatch.setattr(mesh.Mesh, "exchange", mesh.Mesh.exchange)
+        out = harness.run_cell(cell, SEED, 0.1, False, "cpu", 0.0,
+                               port=f"portbench.tests.slab_ports:{fault}")
+        assert not out["correct"], out["checks"]
+        return
     cell.config = dict(cell.config)
     if name.startswith("deff"):
         cell.config["lanes"] = False  # the sequential path, as at 512^3

@@ -89,6 +89,8 @@ def test_spans_leave_the_cell_reduction_as_it_was():
 
 
 PER_CELL = {("k2", "matvec", "f32"): 24, ("k2", "sweep", "f32"): 28,
+            ("k2", "cheby", "f32"): 40, ("k2", "cheby", "f64"): 80,
+            ("k2", "cheby_init", "f32"): 20, ("k2", "cheby_init", "f64"): 40,
             ("k4", "matvec", "f32"): 13, ("k4", "matvec_dot", "f32"): 13,
             ("k4", "matvec", "f64"): 25}
 
