@@ -19,6 +19,7 @@ import importlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -132,7 +133,19 @@ def _run(cell, seed, seconds, trace, device, t0, port, root, world):
     volumes = [blobs.blobs(traffic.n, p, s, device).cpu().numpy()
                for p, s in zip(traffic.porosities, traffic.volume_seeds)]
     s1 = time.perf_counter()
-    if world is None:
+    workdir = None
+    if hasattr(kind, "prepare"):
+        if world is not None:
+            raise NotImplementedError(
+                f"kind {traffic.kind!r} prepares files: one card only")
+        # what the requests read (files), made before the warm-up in a
+        # directory removed once the traced requests are answered (on a
+        # failure, when the object goes)
+        workdir = tempfile.TemporaryDirectory(prefix="portbench-")
+        feed, extra = kind.prepare(volumes, config, traffic, workdir.name), {}
+        print(f"portbench: prepare {time.perf_counter() - s1:.3f} s",
+              file=sys.stderr, flush=True)
+    elif world is None:
         feed, extra = volumes, {}
     else:
         # every rank its own X slab, as io.ingest.threshold_sharded hands
@@ -266,6 +279,8 @@ def _run(cell, seed, seconds, trace, device, t0, port, root, world):
         found = sorted({m for rep in reports for m in rep["forbidden"]})
         if found:
             raise RuntimeError(f"a rank loaded {', '.join(found)}")
+    if workdir is not None:
+        workdir.cleanup()
     # the program's state is gone (answers are host values); the reference
     # runs on the device in f64, after the peak was read
     if cuda:

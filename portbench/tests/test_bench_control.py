@@ -24,6 +24,8 @@ SMALL = {
                                             "num_samples": 3}}),
     # four gloo ranks on the CPU, slabs of 12 planes
     "tau1024.slabs4": (48, 2, 0.4, {}),
+    # each request a run of the CLI (device = cpu) on a TIFF stack
+    "cli512.xyz": (32, 2, None, {}),
 }
 SEED = 2 ** 32 + 11
 
