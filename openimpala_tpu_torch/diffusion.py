@@ -15,7 +15,10 @@ optional REV study -> full-domain calculation:
 The console lines and ``results.txt`` are the JAX CLI's.  ``device``
 (inputs key or ``device=cpu`` override; default ``cuda``) says where the
 solvers run: the thresholded phase moves there once and every calculation
-takes it from there.  Without a card, ``device = cuda`` raises.
+takes it from there.  Without a card, ``device = cuda`` raises.  On one
+device and without a REV study, a TIFF stack in a layout
+``TiffReader.threshold_tensor`` takes goes there as its packed pages and
+is thresholded there; other files are thresholded on the host.
 
 On the card the kernels' build and load start at reader-metadata time, in
 a thread that overlaps the voxel read, the threshold and the percolation
@@ -219,7 +222,7 @@ def _run(cfg: DiffusionConfig, dev, t_start: float) -> int:
                 mesh=mesh, device=dev)
     # under a group, homogenisation and flow-through without remspot ingest
     # straight into X slabs (the JAX CLI's rule)
-    loaded = None
+    loaded = phase_np = None
     if mesh is not None and not cfg.rev_do_study and (
             cfg.calculation_method == "homogenization"
             or (cfg.calculation_method == "flow_through"
@@ -239,8 +242,18 @@ def _run(cfg: DiffusionConfig, dev, t_start: float) -> int:
                    "other ranks")
     else:
         with profiling.phase_timer(None, "cli/read_threshold"):
-            phase_np = load_phase(cfg, meta_reader)  # (X, Y, Z) int8, host
-        shape = phase_np.shape
+            reader = _reader(cfg) if meta_reader is None else meta_reader
+            phase = None
+            if (mesh is None and not cfg.rev_do_study
+                    and hasattr(reader, "threshold_tensor")):
+                # a TIFF stack the run's device thresholds (None: a layout
+                # it does not take)
+                phase = reader.threshold_tensor(cfg.threshold_val, 1, 0, dev)
+            if phase is None:
+                phase_np = load_phase(cfg, reader)  # (X, Y, Z) int8, host
+            elif phase.is_cuda:
+                torch.cuda.synchronize(phase.device)  # the span covers it
+        shape = tuple((phase if phase_np is None else phase_np).shape)
     if verbose >= 1:
         print_(f"  Domain: {shape[0]} x {shape[1]} x {shape[2]}")
 
@@ -269,7 +282,7 @@ def _run(cfg: DiffusionConfig, dev, t_start: float) -> int:
     # the full-domain calculations take the phase on their device, moved
     # once; under a group every rank passes the mesh (a slab with its
     # original shape, or the whole volume)
-    if loaded is None:
+    if phase_np is not None:
         phase = torch.from_numpy(phase_np).to(dev)
     on_mesh = {} if mesh is None else {
         "mesh": mesh, "original_shape": shape if loaded else None}
@@ -279,6 +292,8 @@ def _run(cfg: DiffusionConfig, dev, t_start: float) -> int:
         rank calls this, rank 0 writes)."""
         if phase_np is not None:
             return phase_np
+        if mesh is None:  # thresholded on the device
+            return phase.cpu().numpy()
         return _gather_x(phase[:max(0, min(phase.shape[0], shape[0]
                                            - mesh.rank * phase.shape[0]))],
                          mesh, shape[0])

@@ -1,5 +1,6 @@
 """Host-side readers, writers and the native binding (counterpart of
-``openimpala_tpu/io/``; the port keeps its own copies, numpy only).
+``openimpala_tpu/io/``; the port keeps its own copies, numpy only but for
+``TiffReader.threshold_tensor``, which thresholds on a PyTorch device).
 
 Every reader shares the reference contract (``TiffReader.H:102-180``):
 construction reads metadata only; ``threshold(thr, vtrue, vfalse)``

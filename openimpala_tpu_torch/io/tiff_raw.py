@@ -41,35 +41,44 @@ class RawTiff:
     """IFD-chain parser (classic TIFF and BigTIFF); raises ValueError on
     anything it cannot decode (callers fall back to PIL)."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, f=None):
+        """Parse ``path``'s IFD chain, through ``f`` where the caller has
+        the file open already (binary, seekable)."""
         self.path = path
-        with open(path, "rb") as f:
-            head = f.read(8)
-            if head[:2] == b"II":
-                self.bo = "<"
-            elif head[:2] == b"MM":
-                self.bo = ">"
-            else:
-                raise ValueError("not a TIFF")
-            (magic,) = struct.unpack(self.bo + "H", head[2:4])
-            if magic == 42:
-                self.big = False
-                (off,) = struct.unpack(self.bo + "I", head[4:8])
-            elif magic == 43:
-                # BigTIFF: u16 offset byte-size (always 8), u16 reserved 0,
-                # u64 first-IFD offset (TIFF 6.0 BigTIFF spec; reference
-                # reads these via libtiff 4.x)
-                self.big = True
-                offsize, zero = struct.unpack(self.bo + "HH", head[4:8])
-                if offsize != 8 or zero != 0:
-                    raise ValueError("malformed BigTIFF header")
-                (off,) = struct.unpack(self.bo + "Q", f.read(8))
-            else:
-                raise ValueError(f"not a TIFF (magic {magic})")
-            self.pages = []
-            while off:
-                page, off = self._read_ifd(f, off)
-                self.pages.append(page)
+        if f is None:
+            with open(path, "rb") as f:
+                self._parse(f)
+        else:
+            self._parse(f)
+
+    def _parse(self, f):
+        f.seek(0)
+        head = f.read(8)
+        if head[:2] == b"II":
+            self.bo = "<"
+        elif head[:2] == b"MM":
+            self.bo = ">"
+        else:
+            raise ValueError("not a TIFF")
+        (magic,) = struct.unpack(self.bo + "H", head[2:4])
+        if magic == 42:
+            self.big = False
+            (off,) = struct.unpack(self.bo + "I", head[4:8])
+        elif magic == 43:
+            # BigTIFF: u16 offset byte-size (always 8), u16 reserved 0,
+            # u64 first-IFD offset (TIFF 6.0 BigTIFF spec; reference
+            # reads these via libtiff 4.x)
+            self.big = True
+            offsize, zero = struct.unpack(self.bo + "HH", head[4:8])
+            if offsize != 8 or zero != 0:
+                raise ValueError("malformed BigTIFF header")
+            (off,) = struct.unpack(self.bo + "Q", f.read(8))
+        else:
+            raise ValueError(f"not a TIFF (magic {magic})")
+        self.pages = []
+        while off:
+            page, off = self._read_ifd(f, off)
+            self.pages.append(page)
 
     def _read_ifd(self, f, off):
         f.seek(off)

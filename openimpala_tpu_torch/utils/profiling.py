@@ -25,7 +25,9 @@ scopes and ``amrex::second()`` wall clocks, ``TortuosityHypre.cpp:250,303,
   in ``requests``: its seconds, the calls and seconds of each span under
   it, and what ``counters`` gained over it.
 * ``counters``: ``fill_rounds``, the rounds of every packed percolation
-  fill (``ops/packfill.py``, counted always); ``alloc_segments``, the
+  fill (``ops/packfill.py``, counted always); ``device_pages``, the TIFF
+  pages thresholded on a device (``io/tiff.py::TiffReader.
+  threshold_tensor``, counted always); ``alloc_segments``, the
   caching allocator's ``cudaMalloc`` calls (``segment.all.allocated``)
   over each request, read only while a profiler records or profiling is
   enabled.  ``reset_counters()`` clears them.
@@ -58,6 +60,8 @@ requests: collections.deque = collections.deque(maxlen=256)
 _local = threading.local()  # .request: the record of this thread's request
 _ordinal = itertools.count(1)
 _NULL = contextlib.nullcontext()
+# the counters counted always, whose gain over a request its record keeps
+_GAINED = ("fill_rounds", "device_pages")
 
 
 def enable(on: bool = True):
@@ -135,7 +139,8 @@ class _Request(_Span):
 
     def __enter__(self):
         if self.record is not None:
-            self.before = (counters["fill_rounds"], _alloc_segments())
+            self.before = {k: counters[k] for k in _GAINED}
+            self.before["alloc_segments"] = _alloc_segments()
             _local.request = self.record
         return super().__enter__()
 
@@ -144,8 +149,9 @@ class _Request(_Span):
             super()._close(dt)
             return
         _local.request = None
-        gained = {"fill_rounds": counters["fill_rounds"] - self.before[0],
-                  "alloc_segments": _alloc_segments() - self.before[1]}
+        gained = {k: counters[k] - self.before[k] for k in _GAINED}
+        gained["alloc_segments"] = (_alloc_segments()
+                                    - self.before["alloc_segments"])
         counters["alloc_segments"] += gained["alloc_segments"]
         self.record.update(s=dt, counters=gained)
         requests.append(self.record)

@@ -10,6 +10,7 @@ The JAX CLI itself is not run in-process here: under this suite's eight
 virtual CPU devices it takes the sharded ingest path."""
 
 import dataclasses
+import struct
 import subprocess
 import sys
 from pathlib import Path
@@ -33,6 +34,9 @@ from openimpala_tpu_torch import config as p_config  # noqa: E402
 from openimpala_tpu_torch import diffusion  # noqa: E402
 from openimpala_tpu_torch.io import native as p_native  # noqa: E402
 from openimpala_tpu_torch.io import writers as p_writers  # noqa: E402
+from openimpala_tpu_torch.io.tiff import TiffReader  # noqa: E402
+from openimpala_tpu_torch.utils import profiling  # noqa: E402
+from portbench.kinds.cli import write_tiff1  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "scripts"))
@@ -130,6 +134,167 @@ def test_tiff_codec_layouts_match_jax(tmp_path, case):
     assert (pr.bits_per_sample, pr.sample_format) == (
         jr.bits_per_sample, jr.sample_format)
     _same_reader(jr, pr, thr=0.2 if case.endswith("f64") else 0.5)
+
+
+def _striped_tiff(path, pages, rows_per=None, pad=0, bo="<"):
+    """An uncompressed single-sample classic TIFF of ``pages`` ((H, W)
+    arrays; bool pages 1 bit, FillOrder 1), written by hand: byte order
+    ``bo``, ``rows_per`` rows a strip (None: one strip a page), and after
+    each strip ``pad`` bytes that its byte count includes."""
+    with open(path, "wb") as f:
+        f.write((b"II" if bo == "<" else b"MM") + struct.pack(bo + "HI", 42, 0))
+        link = 4
+        for p in pages:
+            h, w = p.shape
+            rows_per_ = h if rows_per is None else rows_per
+            if p.dtype == bool:
+                rows, bps, fmt = np.packbits(p, axis=1), 1, 1
+            else:
+                rows = p.astype(p.dtype.newbyteorder(bo)).view(np.uint8)
+                bps = 8 * p.dtype.itemsize
+                fmt = {"u": 1, "i": 2, "f": 3}[p.dtype.kind]
+            offsets, counts = [], []
+            for r0 in range(0, h, rows_per_):
+                data = rows[r0:r0 + rows_per_].tobytes() + b"\xa5" * pad
+                offsets.append(f.tell())
+                counts.append(len(data))
+                f.write(data)
+            entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bps]),
+                       (259, 3, [1]), (266, 3, [1]), (273, 4, offsets),
+                       (277, 3, [1]), (278, 4, [rows_per_]),
+                       (279, 4, counts), (339, 3, [fmt])]
+            values = {}
+            for tag, typ, vals in entries:
+                if len(vals) > 1:  # LONG arrays out of line
+                    values[tag] = struct.pack(bo + "I", f.tell())
+                    f.write(struct.pack(f"{bo}{len(vals)}I", *vals))
+                else:
+                    values[tag] = struct.pack(bo + ("H2x" if typ == 3
+                                                    else "I"), vals[0])
+            ifd = f.tell()
+            f.seek(link)
+            f.write(struct.pack(bo + "I", ifd))
+            f.seek(ifd)
+            f.write(struct.pack(bo + "H", len(entries)))
+            for tag, typ, vals in entries:
+                f.write(struct.pack(bo + "HHI", tag, typ, len(vals))
+                        + values[tag])
+            link = f.tell()
+            f.write(struct.pack(bo + "I", 0))
+
+
+def _samples(rng, dtype, shape):
+    """(H, W) samples of ``dtype``: half drawn over its range, half from
+    values at the thresholds and its ends."""
+    if dtype == bool:
+        return rng.random(shape) < 0.5
+    dtype = np.dtype(dtype)
+    if dtype.kind == "f":
+        edge = [np.nan, np.inf, -np.inf, 0.5, 0.1, -0.5, 127.0, 1.0, 0.0]
+        drawn = rng.standard_normal(shape) * 100
+    else:
+        info = np.iinfo(dtype)
+        edge = [v for v in (info.min, -1, 0, 1, 2, 127, 128, info.max)
+                if info.min <= v <= info.max]
+        drawn = rng.integers(info.min, info.max, shape, endpoint=True)
+    vals = rng.choice(np.array(edge, dtype), shape)
+    return np.where(rng.random(shape) < 0.5, drawn.astype(dtype), vals)
+
+
+# layouts threshold_tensor takes: (sample dtype, how the file is written)
+TAKEN = {
+    "bits_fo1": (bool, "write_tiff"),
+    "bits_fo2": (bool, "write_tiff_fo2"),
+    "bits_strips": (bool, "hand_strips"),
+    "bits_strips_padded_be": (bool, "hand_padded_be"),
+    "u8": (np.uint8, "write_tiff"),
+    "i8": (np.int8, "write_tiff"),
+    "u16": (np.uint16, "write_tiff"),
+    "i16": (np.int16, "write_tiff"),
+    "u32": (np.uint32, "write_tiff"),
+    "i32": (np.int32, "write_tiff"),
+    "f32": (np.float32, "write_tiff"),
+    "u8_be": (np.uint8, "hand_be"),
+    "u16_strips_padded": (np.uint16, "hand_padded"),
+    "bits_sequence": (bool, "sequence"),
+    "u16_sequence": (np.uint16, "sequence"),
+    "bits_bigtiff": (bool, "bigtiff"),
+    "f32_bigtiff": (np.float32, "bigtiff"),
+    "cli_stack": (bool, "write_tiff1"),
+}
+# layouts it leaves to the host's threshold
+HOST = {
+    "bits_tiled": (bool, "tiled"),
+    "u16_tiled": (np.uint16, "tiled"),
+    "u8_compressed": (np.uint8, "compressed"),
+    "u16_be": (np.uint16, "hand_be"),
+    "i32_be": (np.int32, "hand_be"),
+    "f64": (np.float64, "write_tiff"),
+    "i64": (np.int64, "write_tiff"),
+}
+
+
+def _stack(tmp_path, dtype, how, pages):
+    """Write ``pages`` as ``how`` says; the name to open."""
+    path = str(tmp_path / "v.tif")
+    if how.startswith("write_tiff") and how != "write_tiff1":
+        write_tiff(path, pages, fill_order=2 if how.endswith("fo2") else 1)
+    elif how == "write_tiff1":  # the benchmark's writer, volume (X, Y, Z)
+        write_tiff1(path, np.stack(pages).transpose(2, 1, 0))
+    elif how == "bigtiff":
+        write_tiff(path, pages, big=True)
+    elif how == "tiled":
+        write_tiff(path, pages, tile=(8, 16))
+    elif how == "sequence":
+        for z, p in enumerate(pages):
+            write_tiff(str(tmp_path / f"s_{z:04d}.tif"), [p])
+        path = str(tmp_path / "s_%04d.tif")
+    elif how == "compressed":
+        from PIL import Image
+
+        im = [Image.fromarray(p) for p in pages]
+        im[0].save(path, compression="tiff_lzw", save_all=True,
+                   append_images=im[1:])
+    else:
+        _striped_tiff(path, pages,
+                      rows_per=3 if "strips" in how or "padded" in how
+                      else None,
+                      pad=5 if "padded" in how else 0,
+                      bo=">" if how.endswith("be") else "<")
+    return path
+
+
+@pytest.mark.parametrize("case", list(TAKEN) + list(HOST))
+def test_tiff_threshold_tensor_matches_jax(tmp_path, case):
+    """``TiffReader.threshold_tensor`` on the CPU: the int8 volume of the
+    JAX package's ``threshold`` and of the port's own, exactly, at every
+    threshold and with ``vtrue``, ``vfalse`` swapped; None for a layout it
+    leaves to the host."""
+    dtype, how = {**TAKEN, **HOST}[case]
+    rng = np.random.default_rng(7)
+    pages = [_samples(rng, dtype, (7, 13)) for _ in range(5)]  # 13 x 7 x 5
+    path = _stack(tmp_path, dtype, how, pages)
+    jr, pr = _both(path)
+    pages0 = profiling.counters["device_pages"]
+    if case in HOST:
+        assert pr.threshold_tensor(0.5, 1, 0, "cpu") is None
+        assert profiling.counters["device_pages"] == pages0
+        return
+    assert pr._raw is not None and pr.shape == (13, 7, 5)
+    # 0.1 and 2**31 - 1.5 tell a float64 compare from a float32 one
+    for thr in (0.5, 0, 1, -0.5, 127, float("nan"), 0.1, 2**31 - 1.5):
+        for vtrue, vfalse in ((1, 0), (0, 1)):
+            got = pr.threshold_tensor(thr, vtrue, vfalse, "cpu")
+            assert got.dtype == torch.int8 and got.is_contiguous()
+            want = jr.threshold(thr, vtrue, vfalse)
+            np.testing.assert_array_equal(got.numpy(), want)
+            np.testing.assert_array_equal(
+                got.numpy(), pr.threshold(thr, vtrue, vfalse))
+    assert profiling.counters["device_pages"] == pages0 + 16 * 5
+    if dtype == bool:
+        np.testing.assert_array_equal(
+            pr.threshold_tensor(0.5, 1, 0).numpy(),
+            np.stack(pages).transpose(2, 1, 0))
 
 
 INPUTS = """
@@ -306,3 +471,34 @@ def test_cli_module_entry_and_usage(sample, tmp_path):
     assert (res / "results.txt").read_text().startswith(
         "# Tortuosity Calculation Results (Flow-Through Method)")
     assert diffusion.main([]) == 2
+
+
+def test_cli_thresholds_the_stack_on_its_device(tmp_path, monkeypatch):
+    """The CLI on a 1-bit stack (the benchmark's writer): ``results.txt``
+    the same whether the device thresholded it or the host did (the method
+    patched to return None), and the request's ``device_pages`` its
+    pages, then none."""
+    vol = msd.make_blobs(12, 0.4, 4)[:, :10, :9]  # 12 x 10 x 9
+    write_tiff1(str(tmp_path / "stack.tif"), vol)
+    inputs, res = _inputs(tmp_path, tmp_path, "stack.tif",
+                          calculation_method="flow_through", direction="All")
+    monkeypatch.setattr(profiling, "_ENABLED", True)
+    texts, pages = [], []
+    try:
+        for host in (False, True):
+            if host:
+                monkeypatch.setattr(TiffReader, "threshold_tensor",
+                                    lambda *args, **kwargs: None)
+            assert diffusion.main([str(inputs), "device=cpu"]) == 0
+            texts.append((res / "results.txt").read_text())
+            record = profiling.requests[-1]
+            assert record["entry"] == "cli"
+            assert "oi/cli/read_threshold" in record["spans"]
+            pages.append(record["counters"]["device_pages"])
+    finally:
+        profiling.reset()
+    assert texts[0] == texts[1]
+    assert pages == [9, 0]
+    want = tmp_path / "want.txt"
+    _jax_results_txt(want, "stack.tif", vol.astype(np.int8), [0, 1, 2], "cg")
+    _same_text(texts[0], want.read_text())

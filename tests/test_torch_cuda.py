@@ -1233,3 +1233,52 @@ def test_slab_gathered_coarse_solve_on_card(cuda, opts):
     assert [gl for _, gl in got] == [len(M.levels)] * 2
     z = np.concatenate([zs for zs, _ in got])
     np.testing.assert_allclose(z, z1, rtol=0, atol=1e-10)
+
+
+def test_cli_thresholds_tiff_stack_on_card(cuda, tmp_path, monkeypatch):
+    """``TiffReader.threshold_tensor`` on the card equals the host's
+    ``threshold`` (1 bit in both FillOrders, 16-bit samples; NaN and swapped
+    values); the CLI on a 1-bit stack writes the same ``results.txt``
+    whether the card thresholded it or the host did, and its request
+    counts the stack's pages in ``device_pages``, then none."""
+    from openimpala_tpu_torch import diffusion
+    from openimpala_tpu_torch.io.tiff import TiffReader
+    from openimpala_tpu_torch.io.tiff_raw import write_tiff
+    from openimpala_tpu_torch.utils import profiling
+    from openimpala_tpu_torch.utils.sample_data import make_blobs
+
+    vol = make_blobs(24, 0.4, 4)[:21, :, :12]  # 21 x 24 x 12
+    pages = [vol[:, :, z].T.astype(bool) for z in range(vol.shape[2])]
+    rng = np.random.default_rng(3)
+    for name, stack, fill_order in (
+            ("fo1.tif", pages, 1), ("fo2.tif", pages, 2),
+            ("u16.tif", [rng.integers(0, 300, (24, 21)).astype(np.uint16)
+                         for _ in range(12)], 1)):
+        write_tiff(str(tmp_path / name), stack, fill_order=fill_order)
+        reader = TiffReader(str(tmp_path / name))
+        for thr, vtrue, vfalse in ((0.5, 1, 0), (127, 0, 1),
+                                   (float("nan"), 1, 0)):
+            got = reader.threshold_tensor(thr, vtrue, vfalse, cuda)
+            assert got.device.type == "cuda" and got.dtype == torch.int8
+            np.testing.assert_array_equal(
+                got.cpu().numpy(), reader.threshold(thr, vtrue, vfalse))
+
+    res = tmp_path / "results"
+    (tmp_path / "run.inputs").write_text(
+        f"filename = fo1.tif\ndata_path = {tmp_path}/\n"
+        f"results_path = {res}/\nphase_id = 1\nhypre.eps = 1e-9\n"
+        "calculation_method = flow_through\ndirection = All\n")
+    monkeypatch.setattr(profiling, "_ENABLED", True)
+    texts, counted = [], []
+    try:
+        for host in (False, True):
+            if host:
+                monkeypatch.setattr(TiffReader, "threshold_tensor",
+                                    lambda *args, **kwargs: None)
+            assert diffusion.main([str(tmp_path / "run.inputs")]) == 0
+            texts.append((res / "results.txt").read_text())
+            counted.append(profiling.requests[-1]["counters"]["device_pages"])
+    finally:
+        profiling.reset()
+    assert texts[0] == texts[1] and "Tortuosity_Z" in texts[0]
+    assert counted == [12, 0]
