@@ -16,7 +16,7 @@ alpha, beta and residual, and lanes that have converged keep their state.
   (the largest lane count, all done) says whether every lane is done, and
   the loop stops there.  On CUDA an iteration is a CUDA graph
   (``utils/graphs.py``), captured once per direction and replayed in every
-  refinement round, and the reads are pipelined (``graphs.iterate``: at
+  refinement round, and the reads are pipelined (``graphs.pcg``: at
   most ``IN_FLIGHT`` done-gated iterations past the count).  The JAX
   package's chunks of 25 exist for its TPU runtime only.
 * **Memory-sized groups**: ``batched_deff`` splits the crop stack into
@@ -88,15 +88,16 @@ def _batched_step(systems, precond, state, denom, eps):
     done.copy_(done2)
 
 
-def _batched_probe(it, done):
+def _batched_probe(state):
     """The packed (max iterations, all done) probe."""
-    return (torch.stack([it.max().to(torch.float64),
-                         done.all().to(torch.float64)]),)
+    it, done = state[4], state[6]
+    return torch.stack([it.max().to(torch.float64),
+                        done.all().to(torch.float64)])
 
 
 def _batched_cg(systems, r0, denom, eps, maxiter: int, precond,
                 _graph=None):
-    """Batched PCG, one host read per iteration (``graphs.iterate``):
+    """Batched PCG, one host read per iteration (``graphs.pcg``):
     z with z0 = 0 per lane, stopped when every lane is done or the largest
     lane count reaches ``maxiter``.  Returns ``(z, iterations (B,),
     rel_res (B,))``.  ``_graph``: as in ``solve/cg.py::_cg_loop``."""
@@ -107,27 +108,11 @@ def _batched_cg(systems, r0, denom, eps, maxiter: int, precond,
     state = (torch.zeros_like(r0), r0.clone(), y, rz,
              torch.zeros((B,), dtype=torch.int32, device=r0.device),
              rel0, rel0 <= eps)
-    with graphs.solve_graph(r0.device, _graph) as holder:
-        if holder:
-            holder.load(("batched", id(systems), id(precond)),
-                        lambda *a: _batched_step(systems, precond, a[:7],
-                                                 a[7], a[8]),
-                        lambda *a: _batched_probe(a[4], a[6]),
-                        state, (denom, torch.full((), float(eps),
-                                                  dtype=r0.dtype,
-                                                  device=r0.device)))
-        if not bool(state[6].all()):  # every r0 already meets eps
-            graphs.iterate(
-                holder,
-                lambda: _batched_step(systems, precond, state, denom,
-                                      float(eps)),
-                lambda: _batched_probe(state[4], state[6])[0], maxiter,
-                lambda values: values[1] > 0)
-        z, r, p, rz, it, rel, done = holder.state if holder else state
-        if holder and holder is _graph:
-            # a shared holder's buffers: the next call overwrites them
-            z, it, rel = z.clone(), it.clone(), rel.clone()
-    return z, it, rel
+    return graphs.pcg(
+        ("batched", id(systems), id(precond)),
+        lambda s, d, e: _batched_step(systems, precond, s, d, e),
+        _batched_probe, state, denom, float(eps), maxiter,
+        lambda values: values[1] > 0, _graph)
 
 
 def batched_cell_problems(masks, direction_k: int, eps: float, maxiter: int,

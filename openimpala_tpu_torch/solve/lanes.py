@@ -10,23 +10,25 @@ as lanes of one solve:
 * the state is ``(L, X, Y, Z)`` and alpha, beta, the residuals and the
   convergence flags are per-lane vectors (lane-wise PCG, not block CG: the
   lanes never couple, so each lane repeats the sequential solve's top-form
-  recurrence, ``solve/cg.py``);
+  recurrence);
 * every vector update is one op on the stacked lanes, and the host reads
   one (3, L) probe for all lanes after every iteration, and stops when
-  every lane is done (on CUDA pipelined, as the mono loop's reads are:
-  ``utils/graphs.py::iterate``);
+  every lane is done;
 * the operator apply is L calls of the shared system's K1 matvec+dot, and
   the preconditioner, built once from ``base()``, is applied per lane;
-* iterative refinement (``solve/refine.py``'s policy, lane-wise) runs all
-  lanes through one float64 outer residual per round;
-* on CUDA the iterations of every round of a solve replay one CUDA
-  graph (``utils/graphs.py``), as the mono loop's do.
+* iterative refinement runs all lanes through one float64 outer residual
+  per round.
 
-On X slabs (systems built with a ``mesh``) every lane's dot products and
-norms are summed over the ranks (``Mesh.allsum``, the same bits on every
-rank, so every rank reads the same probe and takes the same branch), each
-lane's preconditioner is the slab cycle (``solve/slab_mg.py``), and the
-iterations run eagerly, as the mono loop's do there.
+The step, the loop and the refinement rounds are the mono solve's
+(``solve/cg.py::_cg_step``, ``_cg_loop``, ``solve/refine.py::
+_solve_system``): a ``LaneSystem``'s lane axis decides where the two
+differ, so on CUDA the lanes' iterations replay one CUDA graph per solve,
+and on X slabs (systems built with a ``mesh``) every lane's dot products
+and norms are summed over the ranks (``Mesh.allsum``, the same bits on
+every rank), each lane's preconditioner is the slab cycle
+(``solve/slab_mg.py``) and the iterations run eagerly, as the mono
+loop's do.  This module keeps what only the lanes have: the lane system,
+the refinement's stall rule, and when the lanes are taken.
 
 Memory gate (``use_lanes``): lane state is L times the mono solve's; on
 slabs each rank holds its share, on a device it may share with other
@@ -42,23 +44,8 @@ import numpy as np
 import torch
 
 from ..ops.stencil import StencilSystem
-from ..utils import graphs
 from ..utils.common import device_hbm_limit
-from ..utils.profiling import phase_timer
-from .cg import SolveResult, _probe
-
-_VOL = (1, 2, 3)  # the volume axes of an (L, X, Y, Z) stack
-
-
-def _lane_dot(a, b, mesh=None):
-    """Per-lane <a_i, b_i>; under a ``mesh``, summed over the ranks'
-    slabs."""
-    d = torch.sum(a * b, dim=_VOL)
-    return d if mesh is None else mesh.allsum(d)
-
-
-def _bcast(v, ndim: int):
-    return v.reshape(v.shape + (1,) * (ndim - 1))
+from .cg import SolveResult, _cg_loop
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,83 +117,17 @@ class LaneSystem:
             r0_b=self.r0_b.to(dtype), b_norm=self.b_norm.to(dtype))
 
 
-def _lanes_step(lsys, precond, state, denom, eps):
-    """One lockstep PCG iteration over all lanes, written into the state
-    tensors in place: the lane-wise top-form recurrence of ``solve/cg.py::
-    _cg_step``.  A lane that is done pins alpha to 0 and becomes a fixed
-    point; only its counters are gated."""
-    z, r, p, rz_prev, it, rel, done = state
-    L = r.shape[0]
-    ndim = r.dim()
-    y = r if precond is None else torch.stack(
-        [precond(r[i]) for i in range(L)])
-    rz = _lane_dot(r, y, lsys.mesh)
-    beta = torch.where((rz_prev > 0) & ~done,
-                       rz / torch.where(rz_prev > 0, rz_prev, 1.0), 0.0)
-    torch.add(y, _bcast(beta, ndim) * p, out=p)
-    ap, pap = lsys.apply_with_dot(p)
-    ok = (pap > 0) & ~done
-    alpha = torch.where(ok, rz / torch.where(pap > 0, pap, 1.0), 0.0)
-    torch.add(z, _bcast(alpha, ndim) * p, out=z)
-    torch.sub(r, _bcast(alpha, ndim) * ap, out=r)
-    rel2 = torch.sqrt(_lane_dot(r, r, lsys.mesh)) / denom
-    done2 = done | (rel2 <= eps) | (pap <= 0)
-    rz_prev.copy_(rz)
-    it.copy_(torch.where(done, it, it + 1))
-    rel.copy_(torch.where(done, rel, rel2))
-    done.copy_(done2)
-
-
 def cg_lanes(lsys: LaneSystem, r0, denom, eps, maxiter: int, precond,
              verbose: int = 0, history=None, _graph=None) -> SolveResult:
-    """Lockstep PCG on ``(L, ...)`` state, one host read of the (3, L)
-    probe per iteration, stopped when every lane is done or the largest
-    lane count reaches ``maxiter`` (the mono loop's rule, ``solve/cg.py::
-    _cg_loop``), z0 = 0.  ``denom`` is per lane (a zero one falls back to
-    ``||r0_i||``, then to 1); ``precond`` None is the identity.  Returns a
+    """Lockstep PCG on ``(L, ...)`` state (``solve/cg.py::_cg_loop`` on a
+    lane system), one host read of the (3, L) probe per iteration, stopped
+    when every lane is done or the largest lane count reaches ``maxiter``,
+    z0 = 0.  ``denom`` is per lane (a zero one falls back to ``||r0_i||``,
+    then to 1); ``precond`` None is the identity.  Returns a
     ``SolveResult`` whose iterations, rel_res and converged are (L,)
     tensors.  ``_graph``: as in ``solve/cg.py::_cg_loop``."""
-    L = r0.shape[0]
-    dev = r0.device
-    mesh = lsys.mesh
-    denom = torch.as_tensor(denom, dtype=r0.dtype).to(dev)
-    norm0 = torch.sqrt(_lane_dot(r0, r0, mesh))
-    denom = torch.where(denom > 0, denom, norm0)
-    denom = torch.where(denom > 0, denom, 1.0)
-    rel0 = norm0 / denom
-    state = (torch.zeros_like(r0), r0.clone(), torch.zeros_like(r0),
-             torch.zeros((L,), dtype=r0.dtype, device=dev),
-             torch.zeros((L,), dtype=torch.int32, device=dev), rel0,
-             rel0 <= eps)
-
-    def stop(values):
-        its, dones, rels_v = values
-        it = int(max(its))  # the largest lane count
-        if verbose >= 2:
-            rels = ", ".join(f"{v:.3e}" for v in rels_v)
-            print(f"    cg-lanes it={it:5d}  rel_res=[{rels}]")
-        if history is not None:
-            history.record_inner(it, rels_v)
-        return all(d > 0 for d in dones)
-
-    with graphs.solve_graph(dev, _graph, mesh) as holder:
-        if holder:
-            holder.load(("lanes", id(lsys), id(precond)),
-                        lambda *a: _lanes_step(lsys, precond, a[:7], a[7],
-                                               a[8]),
-                        lambda *a: _probe(*a[4:7]),
-                        state, (denom, torch.full((), eps, dtype=r0.dtype,
-                                                  device=dev)))
-        if not bool(state[6].all()):  # every r0 already meets eps
-            graphs.iterate(
-                holder,
-                lambda: _lanes_step(lsys, precond, state, denom, eps),
-                lambda: _probe(*state[4:])[0], maxiter, stop)
-        z, r, p, rz, it, rel, done = holder.state if holder else state
-        if holder and holder is _graph:
-            # a shared holder's buffers: the next call overwrites them
-            z, it, rel = z.clone(), it.clone(), rel.clone()
-    return SolveResult(z=z, iterations=it, rel_res=rel, converged=rel <= eps)
+    return _cg_loop(lsys, r0, denom, eps, int(maxiter), precond,
+                    verbose=verbose, history=history, _graph=_graph)
 
 
 def _lanes_stalled(rel, prev_rel, eps) -> bool:
@@ -218,39 +139,6 @@ def _lanes_stalled(rel, prev_rel, eps) -> bool:
     return bool(np.isfinite(prev_rel).all() and not improved.any())
 
 
-# Glue steps, lane-wise mirrors of refine.py's ``_outer_residual``,
-# ``_round0_estimate``, ``_scale_inner_rhs`` and ``_accumulate``.
-
-def _outer_residual_lanes(lsys, x_outer, outer_dtype):
-    """Per-lane ``free * (b - A x)`` with the system cast to
-    ``outer_dtype``, and the per-lane norms."""
-    rs = lsys.astype(outer_dtype).initial_residual(x_outer)
-    return rs, torch.sqrt(_lane_dot(rs, rs, lsys.mesh))
-
-
-def _round0_estimate_lanes(lsys, z_total):
-    """Round-0 residuals in the Krylov (storage) dtype and their float64
-    norms (refine.py: summed in float32)."""
-    r_hi = lsys.initial_residual(z_total.to(lsys.r0_b.dtype))
-    s = torch.sum(r_hi.to(torch.float32) ** 2, dim=_VOL)
-    if lsys.mesh is not None:
-        s = lsys.mesh.allsum(s)
-    scale = torch.sqrt(s.to(torch.float64))
-    return r_hi, scale
-
-
-def _scale_inner_rhs_lanes(r_hi, scale, live, inner_dtype):
-    """Per-lane normalised inner RHS in the Krylov dtype; converged lanes
-    are zeroed, so they ride along as zero systems (alpha pins to 0)."""
-    r_lo = (r_hi / _bcast(torch.where(scale > 0, scale, 1.0),
-                          r_hi.dim()).to(r_hi.dtype)).to(inner_dtype)
-    return r_lo * _bcast(live.to(r_lo.dtype), r_lo.dim())
-
-
-def _accumulate_lanes(z_total, scale, z):
-    return z_total + _bcast(scale, z_total.dim()) * z.to(z_total.dtype)
-
-
 def solve_system_lanes(lsys: LaneSystem, eps: float, maxiter: int,
                        precond="none", inner_dtype=torch.float32,
                        inner_eps: float = 1e-5, max_refine_rounds: int = 8,
@@ -260,116 +148,20 @@ def solve_system_lanes(lsys: LaneSystem, eps: float, maxiter: int,
                        _graph=None):
     """Solve every lane to ``||b_i - A x_i|| / ||b_i|| <= eps`` with
     ``solve/refine.py::solve_system``'s mixed-precision refinement run in
-    lockstep (one outer residual and one inner Krylov per round for all
-    lanes), x0 = 0 for every lane (the cell problems' initial iterate,
-    ``EffDiffFillMtx.F90:126``).  MIRROR: the policy (round-0 residual in
-    the storage dtype with the 1e-3 guard, adaptive round tolerance from
-    the worst lane, budget, stall break, final re-measure only when stale)
-    is a lane-wise copy of solve_system; keep the two in sync.
+    lockstep (one outer residual and one inner PCG per round for all
+    lanes; the round tolerance from the worst lane), x0 = 0 for every
+    lane (the cell problems' initial iterate, ``EffDiffFillMtx.F90:126``).
     ``precond``: a name for ``make_precond`` or a built preconditioner,
     applied per lane.  Returns ``(x_full (L, ...), info)`` with per-lane
-    (L,) iterations, rel_res and converged.  ``_graph``: as in
+    iterations, rel_res and converged (tuples; (L,) tensors where
+    ``inner_dtype`` disables refinement).  ``_graph``: as in
     ``solve/refine.py::solve_system``."""
-    with graphs.solve_graph(lsys.code.device, _graph, lsys.mesh) as graph:
-        return _solve_lanes(lsys, eps, maxiter, precond, inner_dtype,
-                            inner_eps, max_refine_rounds, inner_round_cap,
-                            outer_dtype, precond_opts, verbose, history,
-                            timings, graph)
+    from .refine import solve_system  # refine.py imports this module
 
-
-def _solve_lanes(lsys, eps, maxiter, precond, inner_dtype, inner_eps,
-                 max_refine_rounds, inner_round_cap, outer_dtype,
-                 precond_opts, verbose, history, timings, graph):
-    from .refine import make_precond
-
-    L = lsys.lanes
-    dev = lsys.code.device
-    storage_dtype = lsys.r0_b.dtype
-
-    if inner_dtype is None or inner_dtype == outer_dtype:
-        r0 = lsys.initial_residual(torch.zeros_like(lsys.r0_b))
-        with phase_timer(None, "solve/hierarchy_build"):
-            M = make_precond(lsys.base(), precond, precond_opts)
-        with phase_timer(None, "solve/krylov"):
-            res = cg_lanes(lsys, r0, lsys.b_norm, eps, maxiter, M,
-                           verbose=verbose, history=history, _graph=graph)
-        return lsys.assemble_solution(res.z), res
-
-    if storage_dtype != inner_dtype:
-        lsys = lsys.astype(inner_dtype)
-    with phase_timer(timings, "solve/hierarchy_build", dev):
-        M_lo = make_precond(lsys.base(), precond, precond_opts)
-    # host vector: the denominators' only consumers are host-side
-    denom = np.maximum(lsys.b_norm.double().cpu().numpy(), 0.0)
-    denom = np.where(denom > 0, denom, 1.0)
-
-    z_total = torch.zeros(lsys.r0_b.shape, dtype=outer_dtype, device=dev)
-    total_iters = np.zeros(L, dtype=np.int64)
-    rel = np.full(L, np.inf)
-    prev_rel = np.full(L, np.inf)
-    budget = int(maxiter)
-
-    stale = True  # does rel reflect the current z_total?
-    for round_i in range(int(max_refine_rounds)):
-        with phase_timer(timings, "solve/outer_residual", dev):
-            lo_first = round_i == 0
-            if lo_first:
-                r_hi, scale = _round0_estimate_lanes(lsys, z_total)
-                rel = scale.cpu().numpy() / denom
-                if (rel < 1e-3).any():  # too close to the f32 floor
-                    lo_first = False
-            if not lo_first:
-                r_hi, scale = _outer_residual_lanes(lsys, z_total,
-                                                    outer_dtype)
-                rel = scale.cpu().numpy() / denom
-        stale = False
-        if verbose >= 2:
-            rels = ", ".join(f"{v:.3e}" for v in rel)
-            print(f"  refine round (lanes): outer rel_res=[{rels}]")
-        if history is not None:
-            history.record_outer(round_i, rel)
-        if bool((rel <= eps).all()):
-            break
-        if _lanes_stalled(rel, prev_rel, eps):
-            break  # no unconverged lane halved its residual this round
-        if budget <= 0:
-            break
-        prev_rel = rel
-        live = torch.from_numpy(~(rel <= eps)).to(dev)
-        r_lo = _scale_inner_rhs_lanes(r_hi, scale, live, inner_dtype)
-        del r_hi
-        # adaptive round tolerance from the worst lane (0.3 margin)
-        worst = float(rel.max())
-        need = float(eps / worst) * 0.3 if worst > 0 else inner_eps
-        round_eps = min(max(inner_eps, need), 0.099)
-        with phase_timer(timings, "solve/inner_round", dev):
-            if history is not None:
-                history._base = int(total_iters.max())
-            with phase_timer(None, "solve/krylov"):
-                inner = cg_lanes(lsys, r_lo,
-                                 torch.ones((L,), dtype=inner_dtype,
-                                            device=dev),
-                                 round_eps, min(budget, int(inner_round_cap)),
-                                 M_lo, verbose=verbose, history=history,
-                                 _graph=graph)
-            del r_lo
-            z_total = _accumulate_lanes(z_total, scale, inner.z)
-            n_it = inner.iterations.cpu().numpy().astype(np.int64)
-            total_iters += n_it
-            budget -= int(n_it.max())
-        stale = True
-
-    if stale:
-        _, scale = _outer_residual_lanes(lsys, z_total, outer_dtype)
-        rel = scale.cpu().numpy() / denom
-        if history is not None:
-            history.record_outer(-1, rel)
-    x_full = lsys.astype(outer_dtype).assemble_solution(z_total)
-    info = SolveResult(z=z_total, iterations=tuple(int(v) for v in
-                                                   total_iters),
-                       rel_res=tuple(float(v) for v in rel),
-                       converged=tuple(bool(v <= eps) for v in rel))
-    return x_full, info
+    return solve_system(lsys, None, eps, maxiter, "cg", precond,
+                        inner_dtype, inner_eps, max_refine_rounds,
+                        inner_round_cap, outer_dtype, precond_opts, verbose,
+                        history, timings, _graph)
 
 
 # The memory model of a lockstep solve, bytes per cell: ``lanes`` x (the

@@ -22,17 +22,24 @@ with every preconditioner in its slab form: the default cycle
 (``solve/slab_mg.py``), ``"mg"`` (``SlabMultigridPreconditioner``),
 ``"sa"`` (``solve/slab_sa.py``), ``"cheby"`` (K5 on the padded slab),
 Jacobi or none.
+
+The lockstep lanes (``solve/lanes.py::solve_system_lanes``) run this
+loop on a lane system: one outer residual and one inner PCG per round
+for all lanes, with the differences the JAX package's ``lanes.py`` keeps
+(``_solve_system``).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..utils import graphs
 from ..utils.profiling import phase_timer
-from .cg import SolveResult, _mesh, cg
+from . import lanes as lockstep
+from .cg import SolveResult, _bcast, _lanes, _mesh, _vdot, cg
 from .fgmres import fgmres
 from .preconditioners import (
     ChebyshevPreconditioner,
@@ -45,15 +52,13 @@ from .slab_mg import SlabGalerkinMGPreconditioner
 from .slab_sa import SlabSAMGPreconditioner
 
 
-def _norm(r, mesh):
-    """||r||_2; under a ``mesh``, over every rank's slab."""
-    s = torch.sum(r * r)
-    return torch.sqrt(s if mesh is None else mesh.allsum(s))
-
-
 def _krylov(method: str, system, r0, denom, eps, maxiter, precond,
             refined: bool = True, verbose: int = 0, history=None,
             _graph=None):
+    if _lanes(system):  # the lockstep lanes run PCG only (``use_lanes``)
+        return lockstep.cg_lanes(system, r0, denom, eps, maxiter, precond,
+                                 verbose=verbose, history=history,
+                                 _graph=_graph)
     if method in ("cg", "pcg"):
         return cg(system, r0, denom, eps, maxiter, precond=precond,
                   verbose=verbose, history=history, _graph=_graph)
@@ -67,31 +72,29 @@ def _krylov(method: str, system, r0, denom, eps, maxiter, precond,
 
 def _outer_residual(system, x_outer, outer_dtype):
     """free * (b - A x) with the system cast to ``outer_dtype``, and its
-    norm."""
+    norm (per lane on a lane system)."""
     r = system.astype(outer_dtype).initial_residual(x_outer)
-    return r, _norm(r, _mesh(system))
+    return r, torch.sqrt(_vdot(system, r, r))
 
 
 def _round0_estimate(system, z_total):
-    """Round-0 residual in the Krylov (storage) dtype and its float64 norm:
-    the first residual is far above the float32 noise floor."""
+    """Round-0 residual in the Krylov (storage) dtype and its float64 norm
+    (summed in float32): the first residual is far above the float32 noise
+    floor."""
     r_hi = system.initial_residual(z_total.to(system.r0_b.dtype))
-    s = torch.sum(r_hi.to(torch.float32) ** 2)
-    if _mesh(system) is not None:
-        s = _mesh(system).allsum(s)
-    scale = torch.sqrt(s.to(torch.float64))
-    return r_hi, scale
+    r32 = r_hi.to(torch.float32)
+    return r_hi, torch.sqrt(_vdot(system, r32, r32).to(torch.float64))
 
 
 def _scale_inner_rhs(r_hi, scale, inner_dtype):
     """Normalised inner-round RHS (r / ||r||) in the Krylov dtype."""
-    return (r_hi / torch.where(scale > 0, scale, 1.0).to(r_hi.dtype)
-            ).to(inner_dtype)
+    return (r_hi / _bcast(torch.where(scale > 0, scale, 1.0), r_hi).to(
+        r_hi.dtype)).to(inner_dtype)
 
 
 def _accumulate(z_total, scale, z):
     """High-precision accumulation z_total + scale * z."""
-    return z_total + scale * z.to(z_total.dtype)
+    return z_total + _bcast(scale, z_total) * z.to(z_total.dtype)
 
 
 def make_precond(sys_, precond, opts=None, method: str = "cg"):
@@ -133,7 +136,8 @@ def solve_system(system, x0_free, eps: float, maxiter: int,
                  outer_dtype=torch.float64, precond_opts=None,
                  verbose: int = 0, history=None, timings=None,
                  _graph=None):
-    """Solve the StencilSystem to ``||b - A x|| / ||b_full|| <= eps``.
+    """Solve the StencilSystem to ``||b - A x|| / ||b_full|| <= eps``
+    (a ``LaneSystem`` from ``x0_free`` None: every lane to its own).
 
     The system should be stored in ``inner_dtype`` (or the final dtype when
     ``inner_dtype is None``, which disables refinement).  Returns
@@ -156,34 +160,55 @@ def _solve_system(system, x0_free, eps, maxiter, method, precond,
                   inner_dtype, inner_eps, max_refine_rounds, inner_round_cap,
                   outer_dtype, precond_opts, verbose, history, timings,
                   graph):
+    """The refinement loop of ``solve_system`` and ``solve/lanes.py::
+    solve_system_lanes``.  The host values (denominators, residuals,
+    counts) are arrays over the lanes; a mono system has one lane.  Where
+    a lane system differs, as the JAX package's ``lanes.py`` differs from
+    its ``refine.py``, the lane axis decides it below: the stall rule,
+    converged lanes riding as zero systems, the Krylov method (PCG only),
+    the starting guess (``x0_free`` None: zero), and the outputs (tuples
+    over the lanes where mono has numbers)."""
+    lanes = _lanes(system)
     storage_dtype = system.r0_b.dtype
     device = system.code.device
 
     if inner_dtype is None or inner_dtype == outer_dtype:
-        r0 = system.initial_residual(x0_free.to(storage_dtype))
+        r0 = system.initial_residual(
+            torch.zeros_like(system.r0_b) if x0_free is None
+            else x0_free.to(storage_dtype))
         with phase_timer(None, "solve/hierarchy_build"):
-            M = make_precond(system, precond, precond_opts)
+            M = make_precond(system.base() if lanes else system, precond,
+                             precond_opts)
         with phase_timer(None, "solve/krylov"):
             res = _krylov(method, system, r0, system.b_norm, eps, maxiter,
                           M, refined=False, verbose=verbose,
                           history=history, _graph=graph)
-        x_full = system.assemble_solution(x0_free + res.z)
-        return x_full, res
+        z = res.z if x0_free is None else x0_free + res.z
+        return system.assemble_solution(z), res
 
     if storage_dtype != inner_dtype:
         system = system.astype(inner_dtype)
     with phase_timer(timings, "solve/hierarchy_build", device):
-        M_lo = make_precond(system, precond, precond_opts)
-    bn = float(system.b_norm)
-    denom = bn if bn > 0 else 1.0
+        M_lo = make_precond(system.base() if lanes else system, precond,
+                            precond_opts)
+    bn = system.b_norm.double().cpu().numpy().reshape(-1)
+    denom = np.where(bn > 0, bn, 1.0)
 
-    # fold the initial guess into the accumulator: one persistent f64 volume
-    z_total = x0_free.to(outer_dtype)
+    # fold the initial guess into the accumulator: one persistent f64
+    # volume (the lanes start from zero)
+    z_total = (torch.zeros(system.r0_b.shape, dtype=outer_dtype,
+                           device=device) if x0_free is None
+               else x0_free.to(outer_dtype))
     del x0_free
-    total_iters = 0
-    rel = math.inf
-    prev_rel = math.inf
+    total_iters = np.zeros(denom.shape, dtype=np.int64)
+    rel = np.full(denom.shape, np.inf)
+    prev_rel = np.full(denom.shape, np.inf)
     budget = int(maxiter)
+
+    def out(a):
+        """A host array as the outputs give it: a tuple over the lanes, a
+        number for mono."""
+        return tuple(a.tolist()) if lanes else a.item()
 
     stale = True  # does rel reflect the current z_total?
     for round_i in range(int(max_refine_rounds)):
@@ -191,52 +216,70 @@ def _solve_system(system, x0_free, eps, maxiter, method, precond,
             lo_first = round_i == 0
             if lo_first:
                 r_hi, scale = _round0_estimate(system, z_total)
-                rel = float(scale) / denom
-                if rel < 1e-3:  # too close to the f32 floor to trust
+                rel = scale.cpu().numpy() / denom
+                if (rel < 1e-3).any():  # too close to the f32 floor
                     lo_first = False
             if not lo_first:
                 r_hi, scale = _outer_residual(system, z_total, outer_dtype)
-                rel = float(scale) / denom
+                rel = scale.cpu().numpy() / denom
         stale = False
-        if verbose >= 2:
-            print(f"  refine round: outer rel_res={rel:.6e}")
+        if verbose >= 2 and lanes:
+            line = ", ".join(f"{v:.3e}" for v in rel)
+            print(f"  refine round (lanes): outer rel_res=[{line}]")
+        elif verbose >= 2:
+            print(f"  refine round: outer rel_res={rel[0]:.6e}")
         if history is not None:
-            history.record_outer(round_i, rel)
-        if rel <= eps:
+            history.record_outer(round_i, out(rel))
+        if bool((rel <= eps).all()):
             break
-        if rel >= prev_rel * 0.5 and math.isfinite(prev_rel):
-            break  # stagnation: the float32 inner solve can't improve further
+        # stagnation: the float32 inner solve can't improve further.  Mono:
+        # the residual did not halve (a NaN residual does not stop it);
+        # lanes: no unconverged lane halved its residual
+        if (lockstep._lanes_stalled(rel, prev_rel, eps) if lanes else
+                rel[0] >= prev_rel[0] * 0.5 and math.isfinite(prev_rel[0])):
+            break
         if budget <= 0:
             break
         prev_rel = rel
         r_lo = _scale_inner_rhs(r_hi, scale, inner_dtype)
-        # adaptive round tolerance: only the remaining reduction (0.3 margin)
-        need = float(eps / rel) * 0.3 if rel > 0 else inner_eps
+        if lanes:
+            # converged lanes ride along as zero systems (alpha pins to 0);
+            # the lanes drop each residual as soon as it is used, as their
+            # memory model counts (lanes.py::LANE_FIELDS_OUTER)
+            live = torch.from_numpy(~(rel <= eps)).to(device)
+            r_lo = r_lo * _bcast(live.to(r_lo.dtype), r_lo)
+            del r_hi
+        # adaptive round tolerance from the worst lane: only the remaining
+        # reduction (0.3 margin)
+        worst = float(rel.max())
+        need = float(eps / worst) * 0.3 if worst > 0 else inner_eps
         round_eps = min(max(inner_eps, need), 0.099)
         with phase_timer(timings, "solve/inner_round", device):
             if history is not None:
-                history._base = total_iters
+                history._base = int(total_iters.max())
             with phase_timer(None, "solve/krylov"):
                 inner = _krylov(method, system, r_lo,
-                                torch.ones((), dtype=inner_dtype,
+                                torch.ones(scale.shape, dtype=inner_dtype,
                                            device=device),
                                 round_eps, min(budget, int(inner_round_cap)),
                                 M_lo, refined=True, verbose=verbose,
                                 history=history, _graph=graph)
+            if lanes:
+                del r_lo
             z_total = _accumulate(z_total, scale, inner.z)
-            n_it = int(inner.iterations)
+            n_it = torch.as_tensor(inner.iterations).cpu().numpy()
             total_iters += n_it
-            budget -= n_it
+            budget -= int(n_it.max())
         stale = True
 
     if stale:
         # only when the round cap ran out after an update: every break path
         # above measured the residual of the final z_total already
         r_hi, scale = _outer_residual(system, z_total, outer_dtype)
-        rel = float(scale) / denom
+        rel = scale.cpu().numpy() / denom
         if history is not None:
-            history.record_outer(-1, rel)
+            history.record_outer(-1, out(rel))
     x_full = system.astype(outer_dtype).assemble_solution(z_total)
-    info = SolveResult(z=z_total, iterations=total_iters, rel_res=rel,
-                       converged=rel <= eps)
+    info = SolveResult(z=z_total, iterations=out(total_iters),
+                       rel_res=out(rel), converged=out(rel <= eps))
     return x_full, info

@@ -16,7 +16,9 @@ card still runs that eager call, and is replayed from then on.  So a
 solve's first step is eager and every later one a replay.  A body may read
 no device value on the host; a capture that fails raises.
 
-The PCG loops (``iterate``) read the probe after every step, pipelined:
+The PCG loops run in one shell, ``pcg``: the holder's load, the guard of
+a solve that is done at the start, ``iterate`` and the final state.  They
+read the probe after every step, pipelined:
 ``advance`` enqueues a step and a tail that also copies the probe into a
 pinned host slot, with a CUDA event behind it; ``read`` waits on that
 event alone.  The host keeps ``IN_FLIGHT`` steps enqueued behind the one
@@ -306,6 +308,37 @@ def iterate(holder, step, probe, maxiter: int, stop):
         stats["steps"] += issued
         if queued:
             holder.surplus(len(queued))
+
+
+def pcg(key, step, probe, state, denom, eps, maxiter: int, stop,
+        graph=None, mesh=None):
+    """The shell of the PCG loops (``solve/cg.py::_cg_loop``, which
+    serves ``cg`` and ``cg_lanes``, and ``solve/batched.py::
+    _batched_cg``).  ``state`` is (z, r, p, rz, it, rel, done);
+    ``step(state, denom, eps)`` advances it in place by one done-gated
+    iteration, and ``probe(state)`` packs the tensor whose host values
+    ``stop`` reads (``iterate``).  No step runs when every ``done`` is set
+    at the start.  On CUDA (``solve_graph``: ``graph`` a shared holder,
+    else one for this call) the holder's bodies are the step, with eps a
+    tensor of the state's dtype (the value a Python float takes in the
+    comparison, and no frozen constant), and the probe.  Returns the final
+    (z, it, rel), copies where ``graph`` is shared: its next load
+    overwrites its buffers."""
+    dev = state[0].device
+    with solve_graph(dev, graph, mesh) as holder:
+        if holder:
+            n = len(state)
+            holder.load(key, lambda *a: step(a[:n], *a[n:]),
+                        lambda *a: (probe(a[:n]),), state,
+                        (denom, torch.full((), eps, dtype=state[0].dtype,
+                                           device=dev)))
+        if not bool(state[6].all()):  # every r0 already meets eps
+            iterate(holder, lambda: step(state, denom, eps),
+                    lambda: probe(state), maxiter, stop)
+        z, _, _, _, it, rel, _ = holder.state if holder else state
+        if holder and holder is graph:
+            z, it, rel = z.clone(), it.clone(), rel.clone()
+    return z, it, rel
 
 
 def chunk_graph(device, graph=None, mesh=None):

@@ -193,9 +193,11 @@ def _summary(calls):
     return out
 
 
-# the PCG loops (module, function names: this tree's or an older one's),
-# each marked as a profiler range while a profiled call runs
-LOOPS = (("openimpala_tpu_torch.solve.cg", ("_cg_loop", "_cg_chunked_loop")),
+# the PCG loops (module, function names), each marked as a profiler range
+# while a profiled call runs: the mono loop, the lanes' entry to it
+# (``cg_lanes`` calls ``_cg_loop`` through its own module's import, so a
+# lockstep solve is marked once) and the batched loop
+LOOPS = (("openimpala_tpu_torch.solve.cg", ("_cg_loop",)),
          ("openimpala_tpu_torch.solve.lanes", ("cg_lanes",)),
          ("openimpala_tpu_torch.solve.batched", ("_batched_cg",)))
 

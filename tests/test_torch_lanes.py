@@ -32,7 +32,7 @@ from openimpala_tpu_torch.props import effective_diffusivity as PED  # noqa: E40
 from openimpala_tpu_torch.solve import lanes as PL  # noqa: E402
 from openimpala_tpu_torch.solve.cg import ResidualHistory, cg  # noqa: E402
 from openimpala_tpu_torch.solve.refine import (  # noqa: E402
-    make_precond as p_make)
+    make_precond as p_make, solve_system)
 from openimpala_tpu_torch.utils.common import device_hbm_limit  # noqa: E402
 from openimpala_tpu_torch.utils.sample_data import make_blobs  # noqa: E402
 
@@ -59,11 +59,39 @@ def _carried(jl):
         np.asarray(jl.b_norm), jl.w, jl.periodic, device="cpu")
 
 
-@pytest.mark.parametrize("precond", ["jacobi", "gmg"])
-def test_cg_lanes_matches_mono_cg(precond):
+def _one_lane_matches_solve_system(system, precond):
+    """``solve_system_lanes`` on a one-lane system against ``solve_system``
+    on the same system, unrefined in float64: the same step, loop and
+    refinement rounds, so equal iterations and x to 1e-12; the history's
+    values are a tuple over the lanes and a float."""
+    hists = ResidualHistory(), ResidualHistory()
+    kw = dict(eps=1e-10, maxiter=500, precond=precond,
+              inner_dtype=torch.float64)
+    x1, one = PL.solve_system_lanes(PL.LaneSystem.from_systems([system]),
+                                    history=hists[0], **kw)
+    x, mono = solve_system(system, torch.zeros_like(system.r0_b),
+                           history=hists[1], **kw)
+    assert bool(one.converged.all()) and bool(mono.converged)
+    assert int(one.iterations[0]) == int(mono.iterations) > 0
+    torch.testing.assert_close(x1[0], x, rtol=0, atol=1e-12)
+    assert len(hists[0].inner) == len(hists[1].inner)
+    for (i1, v1), (i, v) in zip(hists[0].inner, hists[1].inner):
+        assert i1 == i and isinstance(v1, tuple) and len(v1) == 1
+        assert isinstance(v, float)
+
+
+@pytest.mark.parametrize("precond,entry", [
+    ("jacobi", "cg"), ("gmg", "cg"), ("none", "solve_system"),
+    ("gmg", "solve_system")],
+    ids=["jacobi", "gmg", "solve_system-none", "solve_system-gmg"])
+def test_cg_lanes_matches_mono_cg(precond, entry):
     """Each lane repeats the mono PCG's iterates (the lanes never
-    couple)."""
+    couple); ``entry`` "solve_system": a one-lane lockstep solve repeats
+    the mono solve (``_one_lane_matches_solve_system``)."""
     systems, lsys = _port_lanes(_active())
+    if entry == "solve_system":
+        _one_lane_matches_solve_system(systems[0], precond)
+        return
     M = p_make(systems[0], precond)
     r0 = lsys.initial_residual(torch.zeros_like(lsys.r0_b))
     res = PL.cg_lanes(lsys, r0, lsys.b_norm, 1e-10, 500, M)

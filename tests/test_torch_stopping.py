@@ -6,8 +6,8 @@ every iteration and stop at the first that shows the solve done, as the
 JAX package's ``_cg_loop`` does; on CUDA the reads are pipelined
 (``utils/graphs.py::iterate``: at most ``IN_FLIGHT`` done-gated steps past
 the count).  On the CPU a loop executes exactly the iterations it counts:
-the steps are counted here by wrapping ``_cg_step``, ``_lanes_step`` and
-``_batched_step``.  The counts and results are held against the JAX
+the steps are counted here by wrapping ``_cg_step`` (the one step of the
+mono loop and the lanes) and ``_batched_step``.  The counts and results are held against the JAX
 package's on the same input as ``tests/test_torch_cg.py``,
 ``tests/test_torch_lanes.py``, ``tests/test_torch_rev.py`` and
 ``tests/test_torch_maxiter.py`` hold them: the mono counts equal (the
@@ -231,13 +231,13 @@ def test_cg_lanes_executes_what_it_counts(executed, eps):
     jr0 = jl.initial_residual(jnp.zeros(jl.r0_b.shape, jnp.float64))
     want = JL.cg_lanes(jl, jr0, jl.b_norm, eps, 500,
                        JR.make_precond(jsys[0], "jacobi"))
-    steps = executed(PL, "_lanes_step")
+    steps = executed(PC, "_cg_step")
     r0 = pl.initial_residual(torch.zeros_like(pl.r0_b))
     got = PL.cg_lanes(pl, r0, pl.b_norm, eps, 500,
                       make_precond(pl.base(), "jacobi"))
     its = got.iterations.tolist()
     assert bool(got.converged.all())
-    assert steps["_lanes_step"] == max(its) and graphs.stats["calls"] == 1
+    assert steps["_cg_step"] == max(its) and graphs.stats["calls"] == 1
     _require_read_every_step()
     assert all(abs(g - int(w)) <= 1
                for g, w in zip(its, np.asarray(want.iterations)))
@@ -254,8 +254,7 @@ def test_effective_diffusivity_executes_what_it_counts(vol, executed,
     sequential loop: each PCG call's steps equal its count (the largest
     lane count for the lanes), the counts equal the JAX package's and the
     tensor agrees to 1e-6."""
-    steps = executed(PL if lanes else PC,
-                     "_lanes_step" if lanes else "_cg_step")
+    steps = executed(PC, "_cg_step")
     counted = []
     loop = PL.cg_lanes if lanes else PC.cg
 
@@ -372,7 +371,7 @@ def _lanes_case():
              torch.zeros((L,), dtype=torch.int32),
              torch.ones((L,), dtype=r0.dtype),
              torch.zeros((L,), dtype=torch.bool))
-    return (lambda: PL._lanes_step(pl, M, state, pl.b_norm, 1e-6)), state
+    return (lambda: PC._cg_step(pl, M, state, pl.b_norm, 1e-6)), state
 
 
 def _batched_case():
@@ -424,7 +423,7 @@ def test_converged_start_runs_no_step(executed, loop):
     elif loop == "lanes":
         mask = np.random.default_rng(1234).random((12, 10, 8)) < 0.7
         _, _, pl = _lanes_pair(mask)
-        steps = executed(PL, "_lanes_step")
+        steps = executed(PC, "_cg_step")
         res = PL.cg_lanes(pl, torch.zeros_like(pl.r0_b), pl.b_norm, 1e-9,
                           100, None)
     else:
