@@ -597,7 +597,12 @@ def k2_conductance(mode: str, x, r, cx, cy, cz, diag, omega: float = 0.9):
     return out
 
 
-def _k2_cheby_launch(init: bool, d, res, x, cx, cy, cz, diag, out, c1, c2):
+def k2_cheby_bound(init: bool, d, res, x, cx, cy, cz, diag, out):
+    """K2's cheby (``init`` False) or cheby_init step on these buffers,
+    checked and bound once: the returned ``launch(c1, c2)`` launches it
+    on the current stream, as ``k2_cheby`` and ``k2_cheby_init`` do, for
+    a loop that repeats the step on the same buffers."""
+    _check_x(d, "K2")
     for t, what in ((res, "res"), (x, "x"), (cx, "cx"), (cy, "cy"),
                     (cz, "cz"), (diag, "diag"), (out, "out")):
         _check(t, what, like=d, dtype=d.dtype)
@@ -609,13 +614,22 @@ def _k2_cheby_launch(init: bool, d, res, x, cx, cy, cz, diag, out, c1, c2):
     X, Y, Z = d.shape
     lib = _load("k2")
     fn = lib.k2_cheby_f32 if d.dtype == torch.float32 else lib.k2_cheby_f64
-    err = fn(int(init), d.data_ptr(), res.data_ptr(), x.data_ptr(),
-             cx.data_ptr(), cy.data_ptr(), cz.data_ptr(), diag.data_ptr(),
-             out.data_ptr(), X, Y, Z, float(c1), float(c2),
-             torch.cuda.current_stream(d.device).cuda_stream)
+    args = (int(init), d.data_ptr(), res.data_ptr(), x.data_ptr(),
+            cx.data_ptr(), cy.data_ptr(), cz.data_ptr(), diag.data_ptr(),
+            out.data_ptr(), X, Y, Z)
     mode = "cheby_init" if init else "cheby"
-    _raise_on(err, lib, "k2", f"K2 {mode}")
-    _count(f"k2_{mode}_{_DTYPES[d.dtype]}", (X, Y, Z))
+    name = f"k2_{mode}_{_DTYPES[d.dtype]}"
+    device = d.device
+    keep = (d, res, x, cx, cy, cz, diag, out)  # alive while bound
+
+    def launch(c1: float, c2: float):
+        err = fn(*args, float(c1), float(c2),
+                 torch.cuda.current_stream(device).cuda_stream)
+        _raise_on(err, lib, "k2", f"K2 {mode}")
+        _count(name, (X, Y, Z))
+
+    launch.buffers = keep
+    return launch
 
 
 def k2_cheby(d, res, x, cx, cy, cz, diag, c1: float, c2: float, out=None):
@@ -624,9 +638,8 @@ def k2_cheby(d, res, x, cx, cy, cz, diag, c1: float, c2: float, out=None):
     with ``inv_d = diag > 0 ? 1/diag : 0``.  ``res`` and ``x`` are updated
     in place; ``out`` (new when None) must not be ``d``.  ``c1``, ``c2``:
     values of the working dtype.  Returns ``out``."""
-    _check_x(d, "K2")
     out = torch.empty_like(d) if out is None else out
-    _k2_cheby_launch(False, d, res, x, cx, cy, cz, diag, out, c1, c2)
+    k2_cheby_bound(False, d, res, x, cx, cy, cz, diag, out)(c1, c2)
     return out
 
 
@@ -634,9 +647,8 @@ def k2_cheby_init(r, diag, c0: float):
     """The zero-start Chebyshev step on the current stream (K2's
     cheby_init mode): ``(res, d, x) = (r, (inv_d*r)*c0, 0 + d)`` in new
     tensors.  It reads no conductance (``r`` fills their unused slots)."""
-    _check_x(r, "K2")
     res, d, x = (torch.empty_like(r) for _ in range(3))
-    _k2_cheby_launch(True, r, res, x, r, r, r, diag, d, c0, 0.0)
+    k2_cheby_bound(True, r, res, x, r, r, r, diag, d)(c0, 0.0)
     return res, d, x
 
 

@@ -10,6 +10,7 @@ start-up is paid once.  This module imports only the port.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import io
 import json
 import os
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from ..io import RawReader, TiffReader, threshold_sharded
+from ..ops import stencil_cuda
 from ..ops.floodfill import percolation_mask_sharded
 from ..ops.flux import deff_integrand_sum
 from ..ops.masks import pad_volume_to, upload_mask
@@ -27,6 +29,7 @@ from ..props.effective_diffusivity import effective_diffusivity
 from ..props.tortuosity import tortuosity
 from ..solve.refine import make_precond
 from ..utils.common import any_true, count_true
+from . import mesh as mesh_mod
 from .halo import halo_exchange_x, slab_stencil_apply
 from .mesh import shard_volume
 
@@ -35,6 +38,31 @@ def batch(mesh, jobs):
     """``[fn(mesh, *args) for fn, args in jobs]``, ``fn`` a name of this
     module."""
     return [globals()[name](mesh, *args) for name, args in jobs]
+
+
+def with_constants(mesh, constants, name, args):
+    """``name(mesh, *args)`` (a function of this module) with module
+    constants set for the call: ``constants`` maps ``"package.module:
+    NAME"`` to a value, each put back afterwards.  Returns the result and
+    what the call counted from zero: ``{"mesh": mesh.stats,
+    "launches_at": ..., "plain_on_cuda": ...}`` (``ops/stencil_cuda``'s
+    counters)."""
+    saved = []
+    try:
+        for key, value in constants.items():
+            module, attr = key.split(":")
+            mod = importlib.import_module(module)
+            saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, value)
+        mesh_mod.reset_stats()
+        stencil_cuda.reset_counts()
+        out = globals()[name](mesh, *args)
+        return out, {"mesh": dict(mesh_mod.stats),
+                     "launches_at": dict(stencil_cuda.launches_at),
+                     "plain_on_cuda": dict(stencil_cuda.plain_on_cuda)}
+    finally:
+        for mod, attr, value in reversed(saved):
+            setattr(mod, attr, value)
 
 
 def _slab(mesh, a, dtype=None):

@@ -49,7 +49,9 @@ AUTO_SHARD_MIN_CELLS = 96 ** 3
 # since reset_stats(): halo exchanges and the bytes each rank sent for
 # them, gathers and their bytes received, sums, maxima and minima over
 # ranks (each one gather), all-to-alls and the bytes each rank sent to
-# the others
+# the others; ``coarse_slab_exchanges``: the halo exchanges made inside
+# a coarsest-level solve on slabs (``solve/slab_mg.py``), counted in
+# ``halo_exchanges`` too
 stats: collections.Counter = collections.Counter()
 
 _log = logging.getLogger(__name__)
@@ -153,23 +155,11 @@ class Mesh:
             if periodic:
                 return last.clone(), first.clone()
             return torch.zeros_like(first), torch.zeros_like(last)
-        ops, glo, ghi = [], None, None
         w_first, w_last = self._out(first), self._out(last)
-        if has_next:  # my last plane is the next rank's lo ghost (tag 0)
-            ops.append(dist.P2POp(dist.isend, w_last, (i + 1) % n,
-                                  self.group, 0))
-        if has_prev:
-            glo = self._empty_like_wire(first)
-            ops.append(dist.P2POp(dist.irecv, glo, (i - 1) % n,
-                                  self.group, 0))
-        if has_prev:  # my first plane is the previous rank's hi ghost
-            ops.append(dist.P2POp(dist.isend, w_first, (i - 1) % n,
-                                  self.group, 1))
-        if has_next:
-            ghi = self._empty_like_wire(last)
-            ops.append(dist.P2POp(dist.irecv, ghi, (i + 1) % n,
-                                  self.group, 1))
-        for req in dist.batch_isend_irecv(ops):
+        glo = self._empty_like_wire(first) if has_prev else None
+        ghi = self._empty_like_wire(last) if has_next else None
+        for req in dist.batch_isend_irecv(
+                self._plane_ops(w_first, w_last, glo, ghi)):
             req.wait()
         stats["halo_exchanges"] += 1
         stats["halo_bytes"] += (int(has_next) + int(has_prev)) \
@@ -179,6 +169,69 @@ class Mesh:
         ghost_hi = (torch.zeros_like(last) if ghi is None
                     else self._in(ghi, last.dtype))
         return ghost_lo, ghost_hi
+
+    def _plane_ops(self, w_first, w_last, r_lo, r_hi):
+        """The P2P ops of one plane exchange, in one order on every rank:
+        ``w_last`` to the next rank, which receives it as its lower ghost
+        (tag 0), and ``w_first`` to the previous rank, its upper ghost (tag
+        1); ``r_lo``/``r_hi`` None where there is no neighbour."""
+        n, i, ops = self.size, self.rank, []
+        if r_hi is not None:
+            ops.append(dist.P2POp(dist.isend, w_last, (i + 1) % n,
+                                  self.group, 0))
+        if r_lo is not None:
+            ops += [dist.P2POp(dist.irecv, r_lo, (i - 1) % n, self.group, 0),
+                    dist.P2POp(dist.isend, w_first, (i - 1) % n, self.group,
+                               1)]
+        if r_hi is not None:
+            ops.append(dist.P2POp(dist.irecv, r_hi, (i + 1) % n,
+                                  self.group, 1))
+        return ops
+
+    def ghost_exchange(self, xp: torch.Tensor, periodic: bool,
+                       count: str | None = None):
+        """``exchange`` prepared once for a float slab padded by one X
+        plane: the returned function writes the ghost planes ``xp[0]``
+        and ``xp[-1]`` in place from the previous rank's last and the next
+        rank's first interior plane (zeros at the ends of a clamped axis),
+        posting the same P2P ops, built here, at every call.  Under
+        ``nccl`` and on the CPU the planes go and come as views of ``xp``
+        (an X plane is contiguous); staged, through pinned buffers made
+        here.  Each call counts as a halo exchange, and in ``stats[count]``
+        too where ``count`` is given.  The mesh has more than one rank."""
+        n, i = self.size, self.rank
+        has_prev = periodic or i > 0
+        has_next = periodic or i < n - 1
+        first, last, glo, ghi = xp[1], xp[-2], xp[0], xp[-1]
+        wire = [first, last, glo, ghi]
+        if self.staged:
+            wire = [torch.empty(first.shape, dtype=xp.dtype, pin_memory=True)
+                    for _ in wire]
+        w_first, w_last, r_lo, r_hi = wire
+        ops = self._plane_ops(w_first, w_last, r_lo if has_prev else None,
+                              r_hi if has_next else None)
+        nbytes = (int(has_next) + int(has_prev)) * first.numel() \
+            * first.element_size()
+
+        def run():
+            if self.staged:
+                w_first.copy_(first)
+                w_last.copy_(last)
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            for ghost, got, has in ((glo, r_lo, has_prev),
+                                    (ghi, r_hi, has_next)):
+                if not has:
+                    ghost.zero_()
+                elif self.staged:
+                    ghost.copy_(got)
+            stats["halo_exchanges"] += 1
+            stats["halo_bytes"] += nbytes
+            if count:
+                stats[count] += 1
+            return xp
+
+        return run
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` holds ``size`` equal blocks along dim 0, block j for rank

@@ -579,8 +579,9 @@ class GalerkinMGPreconditioner:
         read back.  On a ConductanceLevel each step is one
         ``lvl.cheby_step`` (one K2 launch on the card, which updates the
         loop's own ``res`` and ``x`` in place), and the step from zero one
-        ``lvl.cheby_init``; other levels apply the operator and update
-        with tensor code."""
+        ``lvl.cheby_init``; so from zero on a slab level that has the pair
+        (``solve/slab_mg.py``, padded buffers); other levels apply the
+        operator and update with tensor code."""
         hi = 2.2
         lo = hi / ratio
         theta = 0.5 * (hi + lo)
@@ -588,7 +589,8 @@ class GalerkinMGPreconditioner:
         sigma = theta / delta
         ft = _NP_FLOAT[r.dtype]
         c0 = float(ft(1.0 / theta))
-        fused = isinstance(lvl, ConductanceLevel)
+        fused = isinstance(lvl, ConductanceLevel) or (
+            x is None and hasattr(lvl, "cheby_step"))
         if fused and x is None:
             res, d, x = lvl.cheby_init(r, c0)
         else:

@@ -35,6 +35,10 @@ slabs) a loop reads after every step and executes what it counts.
 reference's ``plot_interval``) replays ``reps`` steps and the tail and
 returns the tail's outputs on the device.
 
+``capture`` records a body so for any caller: besides the PCG loops, the
+slab cycle's coarsest Chebyshev solve on ``nccl`` ranks, exchanges and
+all (``solve/slab_mg.py``), whose steps the host alone would pace.
+
 Why a step and not several: a capture costs the host about the body's
 enqueue time plus the instantiation, and the card waits meanwhile.  An
 eager chunk whose host time matches its device time (the default cycle at
@@ -220,7 +224,7 @@ class ChunkGraph:
         held = self.graphs.get(name)
         if held is None:
             out = self.fns[name](*self.buffers)  # eager: the warm-up
-            self.graphs[name] = self._capture(name)
+            self.graphs[name] = capture(self.fns[name], *self.buffers)
             if name == "step":
                 stats["captures"] += 1
             return out
@@ -231,41 +235,6 @@ class ChunkGraph:
             stats["replays"] += 1
         return out
 
-    def _capture(self, name):
-        """Record ``name``'s body on a side stream, after its eager call
-        was enqueued: nothing waits for the card first (``torch.cuda.graph``
-        would synchronise and empty the cache), since the capture runs no
-        kernel and its replays are ordered after the eager call on the
-        caller's stream.  Returns (graph, outputs, launch counts)."""
-        with phase_timer(None, "solve/capture"):
-            try:
-                return self._record(name)
-            except torch.OutOfMemoryError:
-                pass
-            # out of memory: dead graphs' pools and the cache hold it,
-            # which a capture cannot release (the failed graph is gone by
-            # now)
-            torch.cuda.empty_cache()
-            return self._record(name)
-
-    def _record(self, name):
-        before = sc.snapshot_counts()
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        side = torch.cuda.Stream(self.buffers[0].device)
-        try:
-            with torch.cuda.stream(side):
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    out = self.fns[name](*self.buffers)
-                finally:
-                    graph.capture_end()
-        finally:
-            deltas = sc.counts_since(before)
-            sc.restore_counts(before)
-        stats["capture_s"] += time.perf_counter() - t0
-        return graph, out, deltas
-
     def close(self):
         """Wait for the last step enqueued (the steps in flight copy into
         the pinned slots), then drop the graphs, their outputs, the slots
@@ -275,6 +244,49 @@ class ChunkGraph:
                 self.events[(self.issued - 1) % len(self.slots)].synchronize()
             self.graphs, self.fns, self.buffers = {}, {}, None
             self.slots, self.events, self.issued = [], [], 0
+
+
+def capture(fn, *args):
+    """Record ``fn(*args)`` into a CUDA graph on a side stream, after its
+    eager call was enqueued: nothing waits for the card first
+    (``torch.cuda.graph`` would synchronise and empty the cache), since
+    the capture runs no kernel and its replays are ordered after the eager
+    call on the caller's stream.  Returns (graph, outputs, launch counts):
+    the counters are put back as they were, and each replay adds the
+    counts once.  A capture that runs out of memory empties the cache and
+    tries once more (dead graphs' pools and the cache hold it, which a
+    capture cannot release; the failed graph is gone by then)."""
+    with phase_timer(None, "solve/capture"):
+        try:
+            return _record(fn, args)
+        except torch.OutOfMemoryError:
+            pass
+        torch.cuda.empty_cache()
+        return _record(fn, args)
+
+
+def _record(fn, args):
+    before = sc.snapshot_counts()
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(args[0].device)
+    try:
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = fn(*args)
+            finally:
+                graph.capture_end()
+    finally:
+        deltas = sc.counts_since(before)
+        sc.restore_counts(before)
+    stats["capture_s"] += time.perf_counter() - t0
+    return graph, out, deltas
+
+
+def eager_only() -> bool:
+    """Whether the calling thread is inside ``_eager_twin()``."""
+    return bool(getattr(_local, "eager", 0))
 
 
 def iterate(holder, step, probe, maxiter: int, stop):

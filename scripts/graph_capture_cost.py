@@ -32,13 +32,15 @@ from openimpala_tpu_torch.utils import graphs
 from openimpala_tpu_torch.utils.sample_data import make_blobs
 
 G = graphs.ChunkGraph
-_CALL, _RECORD = G._call, G._record
+_CALL, _RECORD = G._call, graphs._record
 rows = []
+_naming = [None]  # the body ``_timed_record`` records
 
 
 def _timed_call(self, name):
     """A holder's first step: the eager step's host enqueue seconds and
     device time (CUDA events), then its capture (``_timed_record``)."""
+    _naming[0] = name
     if name != "step" or "step" in self.graphs:
         return _CALL(self, name)
     start = torch.cuda.Event(enable_timing=True)
@@ -49,23 +51,24 @@ def _timed_call(self, name):
     end.record()
     rows.append({"eager_step_host_s": time.perf_counter() - t0,
                  "_events": (start, end)})
-    self.graphs[name] = self._capture(name)
+    self.graphs[name] = graphs.capture(self.fns[name], *self.buffers)
     graphs.stats["captures"] += 1
     return out
 
 
-def _timed_record(self, name):
-    """``ChunkGraph._record`` with the body and the instantiation timed
+def _timed_record(fn, args):
+    """``graphs._record`` with the body and the instantiation timed
     apart."""
+    name = _naming[0]
     before = sc.snapshot_counts()
     t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream(self.buffers[0].device)
+    side = torch.cuda.Stream(args[0].device)
     try:
         with torch.cuda.stream(side):
             graph.capture_begin(capture_error_mode="thread_local")
             try:
-                out = self.fns[name](*self.buffers)
+                out = fn(*args)
                 t1 = time.perf_counter()
             finally:
                 graph.capture_end()
@@ -110,7 +113,7 @@ def main(argv=None):
            "precond": args.precond, "graphed": [], "eager_wall_s": []}
     for _ in range(args.reps):
         rows.clear()
-        G._call, G._record = _timed_call, _timed_record
+        G._call, graphs._record = _timed_call, _timed_record
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -118,7 +121,7 @@ def main(argv=None):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
-            G._call, G._record = _CALL, _RECORD
+            G._call, graphs._record = _CALL, _RECORD
         for r in rows:
             start, end = r.pop("_events")
             r["eager_step_device_s"] = start.elapsed_time(end) / 1e3

@@ -1235,6 +1235,44 @@ def test_slab_gathered_coarse_solve_on_card(cuda, opts):
     np.testing.assert_allclose(z, z1, rtol=0, atol=1e-10)
 
 
+def test_slab_coarse_solve_on_slabs_on_card(cuda):
+    """The slab cycle on two ranks of one card (gloo) with the coarsest
+    level's Chebyshev solve on the slabs (``SLAB_COARSE_MIN_CELLS`` set to
+    0 on the ranks): equal to the single-card cycle to 1e-10 in float64;
+    each rank launches K2's cheby step ``coarse_sweeps - 1`` times and its
+    zero-start step once at the padded slab's extent, and none at the
+    global coarsest extent, with one ghost exchange a step and no plain
+    form on a CUDA tensor."""
+    from openimpala_tpu_torch.parallel import spawn
+
+    shape = (32, 16, 16)
+    rng = np.random.default_rng(9)
+    active = rng.random(shape) < 0.7
+    sys1 = st.make_tortuosity_system(torch.from_numpy(active).to(cuda), 0,
+                                     -1.0, 1.0, dtype=torch.float64)
+    r = np.where(active, rng.standard_normal(shape), 0.0)
+    M = GalerkinMGPreconditioner.from_system(sys1)
+    z1 = M(torch.from_numpy(r).to(cuda)).cpu().numpy()
+    glob = tuple(int(v) for v in M.levels[-1].diag.shape)
+    slab = (glob[0] // 2 + 2,) + glob[1:]
+    got = spawn.run(
+        "openimpala_tpu_torch.parallel.checks:with_constants", 2,
+        args=({"openimpala_tpu_torch.solve.slab_mg:SLAB_COARSE_MIN_CELLS":
+               0}, "vcycle", (active, r, 0, (1.0, 1.0, 1.0), {})),
+        device="cuda:0", timeout=300)
+    assert [gl for (_, gl), _ in got] == [None] * 2
+    for _, counts in got:
+        at = counts["launches_at"]
+        assert at[("k2_cheby_f64", slab)] == M.coarse_sweeps - 1
+        assert at[("k2_cheby_init_f64", slab)] == 1
+        assert not any(s == glob for (_, s) in at)
+        assert counts["mesh"]["coarse_slab_exchanges"] == (
+            M.coarse_sweeps - 1)
+        assert not counts["plain_on_cuda"]
+    z = np.concatenate([zs for (zs, _), _ in got])
+    np.testing.assert_allclose(z, z1, rtol=0, atol=1e-10)
+
+
 def test_cli_thresholds_tiff_stack_on_card(cuda, tmp_path, monkeypatch):
     """``TiffReader.threshold_tensor`` on the card equals the host's
     ``threshold`` (1 bit in both FillOrders, 16-bit samples; NaN and swapped

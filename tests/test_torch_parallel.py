@@ -11,9 +11,11 @@ fails the tests instead of hanging the suite; the JAX references are
 computed in this process while the ranks work.
 
 Tolerances: halos and the slab stencil exact in float64; the K1 matvec
-(plain form) 1e-12; one Galerkin V-cycle 1e-10; tau 1e-6 with active_vf
-exact and iterations within 2 (sums over ranks add in another order);
-percolation masks and packed words bit for bit.
+(plain form) 1e-12; one Galerkin V-cycle 1e-10, gathered at the coarsest
+level or solving it on the slabs; tau 1e-6 with active_vf exact and
+iterations within 2 (sums over ranks add in another order), and with the
+coarsest level on the slabs 1e-12 of the gathered run with its
+iterations; percolation masks and packed words bit for bit.
 """
 
 import numpy as np
@@ -78,6 +80,13 @@ VCYCLE = {  # shape, dx, options; the level the slab cycle gathers at
 # the flow direction of a V-cycle case (X unless named): the padded case
 # flows along Y, so that its live planes are the original's system
 VCYCLE_DIR = {"padded": 1}
+# cases run again with the coarsest level solved on the slabs (the ranks'
+# SLAB_COARSE_MIN_CELLS set to 0 for the call): a V-cycle case and how
+# often a cycle visits its coarsest level, or "periodic", the periodic-X
+# cell problem of X on VCYCLE["even"]'s mask; then tau cases
+COARSE_MIN = {"openimpala_tpu_torch.solve.slab_mg:SLAB_COARSE_MIN_CELLS": 0}
+SLAB_COARSE = {"even": 1, "semi": 1, "w_cheby": 2, "deep": 1, "periodic": 1}
+TAU_SLAB_COARSE = ("x_even", "y")
 TAU = {  # shape, direction, dx
     "x_even": ((32, 32, 32), 0, (1.0, 1.0, 1.0)),
     "y": ((32, 20, 20), 1, (1.0, 1.0, 1.0)),
@@ -158,6 +167,16 @@ def _jobs(tmp, blob_phase):
         jobs.append(("tau", (_vol(7, shape), d, dict(
             TAU_KW, precond=precond, maxiter=cap))))
     jobs.append(("tau_mismatch", (_vol(7, (32, 32, 32)), 0)))
+    for name in SLAB_COARSE:
+        shape, dx, opts, _ = VCYCLE["even" if name == "periodic" else name]
+        args = (_mask(4, shape), _field(6, shape), 0, dx, opts)
+        jobs.append(("with_constants", (COARSE_MIN, "vcycle", args) if
+                     name != "periodic" else (COARSE_MIN, "cell_vcycle",
+                                              args[:2] + args[3:])))
+    for name in TAU_SLAB_COARSE:
+        shape, d, dx = TAU[name]
+        jobs.append(("with_constants", (COARSE_MIN, "tau", (
+            _vol(7, shape), d, dict(TAU_KW, dx=dx)))))
     jobs.append(("ingest", (str(tmp / "v.raw"), "raw", (36, 16, 16), 0,
                             {"eps": 1e-9})))
     jobs.append(("ingest", (str(tmp / "v.tif"), "tiff", None, 1,
@@ -298,6 +317,87 @@ def test_slab_vcycle_matches_single_device(world, index, name):
     M = JaxGMG.from_system(jsys, **opts)
     zj = np.asarray(jax.jit(lambda M_, r_: M_(r_))(M, jnp.asarray(r)))
     np.testing.assert_allclose(z, zj, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("index,name", enumerate(SLAB_COARSE))
+def test_slab_vcycle_coarsest_on_slabs(world, index, name):
+    """With the coarsest level's Chebyshev solve on the slabs (K2's cheby
+    step on each padded slab, one ghost exchange a step) the cycle equals
+    the single-device cycle and the JAX package's to 1e-10, clamped and
+    periodic in X, and each visit of the coarsest level makes
+    ``coarse_sweeps - 1`` exchanges there."""
+    from openimpala_tpu.ops import stencil as jax_stencil
+    from openimpala_tpu.solve.preconditioners import (
+        GalerkinMGPreconditioner as JaxGMG)
+    from openimpala_tpu_torch.ops.stencil import make_cell_problem_system
+    from openimpala_tpu_torch.solve.preconditioners import (
+        GalerkinMGPreconditioner)
+
+    shape, dx, opts, _ = VCYCLE["even" if name == "periodic" else name]
+    active, r = _mask(4, shape), _field(6, shape)
+    if name == "periodic":
+        sys1 = make_cell_problem_system(torch.from_numpy(active), 0, dx,
+                                        dtype=torch.float64)
+        jsys = jax_stencil.make_cell_problem_system(jnp.asarray(active), 0,
+                                                    dx)
+    else:
+        sys1 = _port_single_system(active, 0, dx)
+        r = np.where(sys1.free.numpy(), r, 0.0)
+        jsys = jax_stencil.make_tortuosity_system(jnp.asarray(active), 0,
+                                                  -1.0, 1.0, dx)
+    M1 = GalerkinMGPreconditioner.from_system(sys1, **opts)
+    z1 = M1(torch.from_numpy(r)).numpy()
+    got = world("with_constants", index)
+    assert [g for (_, g), _ in got] == [None] * N
+    for _, counts in got:
+        assert counts["mesh"]["coarse_slab_exchanges"] == (
+            SLAB_COARSE[name] * (M1.coarse_sweeps - 1))
+    z = _cat([z for (z, _), _ in got])
+    np.testing.assert_allclose(z, z1, rtol=0, atol=1e-10)
+    M = JaxGMG.from_system(jsys, **opts)
+    zj = np.asarray(jax.jit(lambda M_, r_: M_(r_))(M, jnp.asarray(r)))
+    np.testing.assert_allclose(z, zj, rtol=0, atol=1e-10)
+
+
+def test_slab_coarse_rule():
+    """The coarsest level goes on the slabs only where every coarsening
+    is rank-local, the coarse solve is Chebyshev's and the global level
+    has ``SLAB_COARSE_MIN_CELLS`` cells; VCYCLE's volumes lie below it, so
+    their gather levels are the ones ``test_slab_vcycle_matches_single_
+    device`` holds, and 1024^3's coarsest (256^3) lies above it."""
+    from openimpala_tpu_torch.solve.preconditioners import (
+        GalerkinMGPreconditioner)
+    from openimpala_tpu_torch.solve.slab_mg import (
+        SLAB_COARSE_MIN_CELLS as MIN, coarse_on_slabs)
+
+    full = ((0, 1, 2), (0, 1, 2))
+    assert coarse_on_slabs(2, full, 256 ** 3)
+    assert coarse_on_slabs(2, full, MIN)
+    assert not coarse_on_slabs(2, full, MIN - 1)
+    assert not coarse_on_slabs(1, full, MIN)  # gathered above the coarsest
+    assert not coarse_on_slabs(0, (), MIN)  # no coarse level at all
+    assert not coarse_on_slabs(2, full, MIN, coarse_solver="jacobi")
+    for shape, dx, opts, gather in VCYCLE.values():
+        w = tuple(1.0 / d ** 2 for d in dx)
+        coarsest = list(shape)
+        for axes in GalerkinMGPreconditioner._schedule_for(
+                shape, w, opts.get("max_levels", 3)):
+            for a in axes:
+                coarsest[a] //= 2
+        assert np.prod(coarsest) < MIN and gather is not None
+
+
+@pytest.mark.parametrize("index,name", enumerate(TAU_SLAB_COARSE))
+def test_tortuosity_coarsest_on_slabs(world, index, name):
+    """tau with the coarsest level's solve on the slabs: the iterations of
+    the gathered run and its tau within 1e-12, the same on every rank."""
+    got = world("with_constants", len(SLAB_COARSE) + index)
+    gathered = world("tau", list(TAU).index(name))[0]
+    for g, counts in got:
+        assert g == got[0][0]
+        assert g["converged"] and g["iterations"] == gathered["iterations"]
+        assert abs(g["value"] - gathered["value"]) <= 1e-12
+        assert counts["mesh"]["coarse_slab_exchanges"] > 0
 
 
 # ---------------------------------------------------------------------------
