@@ -40,6 +40,7 @@ class Window:
     results: int  # tau values or tensors completed
     peak_bytes: int
     setup_s: float
+    flushes: int | None = None  # the allocator's cache flushes in it
 
 
 @dataclasses.dataclass
@@ -51,6 +52,7 @@ class Traced:
     kind: str
     answers: list
     trace: dict
+    window: Window | None = None  # the measured window before it
 
 
 def forbidden_modules() -> list:
@@ -79,6 +81,14 @@ def _read(entries, group, what, root):
         if v is not None:
             out[m["name"]] = {"value": v, "unit": m["unit"]}
     return out
+
+
+def _flushes(torch):
+    """How often the caching allocator has emptied its cache (each
+    ``torch.cuda.empty_cache()``, and each flush after a failed cudaMalloc,
+    synchronises and frees its events once); None where it does not
+    count them."""
+    return torch.cuda.memory_stats().get("num_sync_all_streams")
 
 
 def _sync(torch, device):
@@ -180,6 +190,7 @@ def _run(cell, seed, seconds, trace, device, t0, port, root, world):
         torch.cuda.reset_peak_memory_stats()
 
     answered, latencies = [], []
+    flush0 = _flushes(torch) if cuda else None
     start = time.perf_counter()
     setup_s = start - t0
     i = 0
@@ -193,11 +204,14 @@ def _run(cell, seed, seconds, trace, device, t0, port, root, world):
         latencies.append(a1 - a0)
         if a1 - start >= seconds:
             break
+    flushes = None if flush0 is None else _flushes(torch) - flush0
     third = max(1, len(latencies) // 3)
     # the caching allocator's flushes (a failed cudaMalloc frees the cache
-    # and retries) and what it holds at the close
+    # and retries; so does the package's graph capture when it runs out)
+    # and what it holds at the close
     alloc = (f"; allocator retries "
              f"{torch.cuda.memory_stats().get('num_alloc_retries', 0)}"
+             f", cache flushes in the window {flushes}"
              f", reserved {torch.cuda.memory_reserved() / 1e9:.2f} GB"
              if cuda else "")
     print(f"portbench: setup {setup_s:.3f} s, window {a1 - start:.3f} s, "
@@ -217,7 +231,7 @@ def _run(cell, seed, seconds, trace, device, t0, port, root, world):
         peak = max([peak] + peaks)
     window = Window(traffic.kind, a1 - start, latencies,
                     sum(kind.results(a) for _, a in answered), peak,
-                    setup_s)
+                    setup_s, flushes)
     attempted = sum(kind.expected(r, traffic) for r, _ in answered)
     failed = sum(kind.failed(r, a, traffic) for r, a in answered)
 
@@ -262,7 +276,7 @@ def _run(cell, seed, seconds, trace, device, t0, port, root, world):
               f"{time.perf_counter() - a1:.3f} s after the window",
               file=sys.stderr, flush=True)
         metrics = _read(cell.per_layer, "metrics",
-                        Traced(traffic.kind, rows, reduced), root)
+                        Traced(traffic.kind, rows, reduced, window), root)
         if reduced:
             device_info["busy_s"] = reduced["busy_s"]
             device_info["window_s"] = reduced["window_s"]

@@ -4,7 +4,9 @@ A kind module has:
 
 * ``call(port, volume, request, config, device, timings)``: one request
   to the measured package (``port``), with the host volume; returns the
-  answer as the entry point returns it;
+  answer as the entry point returns it (a kind that a cell on several
+  cards runs also takes ``original_shape``: the volume is then this
+  rank's X slab);
 * ``results(answer)``: how many results (tau values, tensors) it holds;
 * ``expected(request, traffic)``: how many it should hold;
 * ``failed(request, answer, traffic)``: how many of them did not come

@@ -13,15 +13,20 @@ import types
 import numpy as np
 import torch
 
-from ..reference import props
+from ..reference import props, slab_cells, slabs
 from . import Lazy
 
 
-def call(port, volume, request, config, device, timings=None):
+def call(port, volume, request, config, device, timings=None,
+         original_shape=None):
+    """``original_shape``: ``volume`` is this rank's X slab of a volume of
+    that shape (every rank of the process group calls)."""
+    extra = {} if original_shape is None else {
+        "original_shape": original_shape}
     return port.effective_diffusivity(
         volume, config["phase_id"], eps=config["eps"],
         precond=config["precond"], lanes=config["lanes"],
-        dx=tuple(config["dx"]), device=device, timings=timings)
+        dx=tuple(config["dx"]), device=device, timings=timings, **extra)
 
 
 def results(answer) -> int:
@@ -45,17 +50,25 @@ def tensor_gap(got, ref) -> float:
 
 
 def reference(volume, config, device, dtype):
-    """(tensor, number of phase cells) of a host volume."""
+    """(tensor, number of phase cells) of a host volume; ``device`` a
+    tuple of devices: on X slabs over them (``reference/slab_cells.py``)."""
     t0 = time.perf_counter()
-    ok = torch.from_numpy(volume).to(device) == config["phase_id"]
-    tensor, infos = props.deff_tensor(ok, tuple(config["dx"]), dtype)
+    if isinstance(device, tuple):
+        ok = [s == config["phase_id"] for s in slabs.split(volume, device)]
+        tensor, infos = slab_cells.deff_tensor(ok, tuple(config["dx"]),
+                                               dtype)
+        n_phase = sum(int(o.sum()) for o in ok)
+    else:
+        ok = torch.from_numpy(volume).to(device) == config["phase_id"]
+        tensor, infos = props.deff_tensor(ok, tuple(config["dx"]), dtype)
+        n_phase = int(ok.sum())
     if not all(i.converged for i in infos) and dtype == torch.float64:
         raise RuntimeError(f"the reference failed: {infos}")
     if volume.size >= 2 ** 21:  # whole volumes, not REV crops
         print(f"portbench: reference tensor {dtype}: "
               f"{time.perf_counter() - t0:.3f} s, steps "
               f"{[i.iterations for i in infos]}", file=sys.stderr, flush=True)
-    return tensor, int(ok.sum())
+    return tensor, n_phase
 
 
 def compare(answered, volumes, config, traffic, rng, device, dtype):

@@ -104,10 +104,16 @@ def test_a_broken_timed_path_is_not_correct(fault, monkeypatch):
             pc, total = real_vf(*a, **k)
             return pc + 1, total
         monkeypatch.setattr(diffusion, "volume_fraction_counts", miscounted)
-    else:  # the stack read with X and Y swapped
+    else:  # the stack read with X and Y swapped, on the host or a device
         real_thr = TiffReader.threshold
+        real_dev = TiffReader.threshold_tensor
+
+        def swapped(self, *a, **k):
+            t = real_dev(self, *a, **k)
+            return None if t is None else t.transpose(0, 1).contiguous()
         monkeypatch.setattr(TiffReader, "threshold", lambda self, *a, **k:
                             np.ascontiguousarray(
                                 real_thr(self, *a, **k).transpose(1, 0, 2)))
+        monkeypatch.setattr(TiffReader, "threshold_tensor", swapped)
     out = harness.run_cell(_cell(), SEED, 0.1, False, "cpu", 0.0)
     assert not out["correct"], out["checks"]

@@ -20,6 +20,8 @@ SMALL = {
     "tau512.xyz": (48, 2, 0.4, {}),
     "tau128.screen": (32, 6, None, {}),
     "deff512.tensor": (40, 2, 0.4, {}),
+    # the three cell problems as lockstep lanes
+    "deff100.sample": (36, 6, None, {}),
     "rev512.batched": (64, 1, 0.4, {"call": {"sizes": [16, 24],
                                             "num_samples": 3}}),
     # four gloo ranks on the CPU, slabs of 12 planes
@@ -62,6 +64,15 @@ def _altered(real, scale):
     return wrapped
 
 
+def _unchanged_lanes(lsys, **kw):
+    """A lockstep solve whose steps leave every lane's state as it was,
+    and say converged."""
+    x0 = torch.zeros_like(lsys.r0_b, dtype=kw["outer_dtype"])
+    return lsys.assemble_solution(x0), types.SimpleNamespace(
+        iterations=(0,) * lsys.lanes, rel_res=(0.0,) * lsys.lanes,
+        converged=(True,) * lsys.lanes)
+
+
 def _half_batch(real):
     """Half of each batch of crops solved; the rest given the mean of
     those."""
@@ -78,6 +89,7 @@ FAULTS = [
     ("tau512.xyz", "state"), ("tau512.xyz", "answer"),
     ("tau128.screen", "state"), ("tau128.screen", "answer"),
     ("deff512.tensor", "state"), ("deff512.tensor", "answer"),
+    ("deff100.sample", "state"), ("deff100.sample", "answer"),
     ("rev512.batched", "half_batch"), ("rev512.batched", "state"),
     ("tau1024.slabs4", "state"), ("tau1024.slabs4", "answer"),
     ("tau1024.slabs4", "exchange"),
@@ -103,7 +115,7 @@ def test_a_broken_timed_path_is_not_correct(name, fault, monkeypatch):
         assert not out["correct"], out["checks"]
         return
     cell.config = dict(cell.config)
-    if name.startswith("deff"):
+    if name == "deff512.tensor":
         cell.config["lanes"] = False  # the sequential path, as at 512^3
     broken = types.SimpleNamespace(
         tortuosity=port.tortuosity,
@@ -112,6 +124,7 @@ def test_a_broken_timed_path_is_not_correct(name, fault, monkeypatch):
     if fault == "state":
         monkeypatch.setattr(pt, "solve_system", _unchanged_state)
         monkeypatch.setattr(pe, "solve_system", _unchanged_state)
+        monkeypatch.setattr(pe, "solve_system_lanes", _unchanged_lanes)
         real = batched._batched_cg
 
         def frozen(systems, r0, denom, eps, maxiter, precond, *a, **k):

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import blobs, devtrace, roofline, spec, traffic
+from portbench import blobs, devtrace, harness, roofline, spec, traffic
 from portbench.kinds import stratified
 
 
@@ -134,3 +134,19 @@ def test_rev_and_whole_volume_tensors_have_metrics_of_their_own():
     assert spec.reader("end_to_end", "time_to_deff_s.rev")(window) == \
         pytest.approx(6.0 / 27)
     assert spec.reader("end_to_end", "time_to_deff_s")(window) is None
+
+
+@pytest.mark.parametrize("flushes", [0, 2, None])
+def test_cache_flushes_are_the_windows(flushes):
+    window = harness.Window("effective_diffusivity", 51.0, [0.05], 1,
+                            1, 1.0, flushes)
+    read = spec.reader("metrics", "device.cache_flushes.lanes")
+    assert read(harness.Traced("effective_diffusivity", [], {},
+                               window)) == flushes
+    assert read(harness.Traced("effective_diffusivity", [], {})) is None
+    assert read(harness.Traced("tortuosity", [], {}, window)) is None
+    rev = spec.reader("metrics", "device.cache_flushes.rev")
+    assert rev(harness.Traced("rev_study", [], {}, window)) == flushes
+    assert rev(harness.Traced("rev_study", [], {})) is None
+    assert rev(harness.Traced("effective_diffusivity", [], {},
+                              window)) is None
